@@ -1,0 +1,1 @@
+"""Architecture configurations (a copy of the JAX package's, pure data)."""

@@ -1,0 +1,18 @@
+"""starcoder2-15b [dense] — GQA kv=4, RoPE [arXiv:2402.19173; hf]."""
+from repro_torch.configs.base import ArchConfig, register
+
+STARCODER2_15B = register(
+    ArchConfig(
+        name="starcoder2-15b",
+        family="dense",
+        num_layers=40,
+        d_model=6144,
+        num_heads=48,
+        num_kv_heads=4,
+        d_ff=24576,
+        vocab_size=49152,
+        gated_mlp=False,
+        rope_theta=100_000.0,
+        source="arXiv:2402.19173",
+    )
+)

@@ -1,0 +1,120 @@
+"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds).  All missing libraries are built together, one ``nvcc`` process
+per source.  Libraries land in ``<repo>/build/kernels/`` (or
+``$REPRO_TORCH_BUILD_DIR``), named by a hash of their source and flags, so
+an edited source is rebuilt and a stale library is never loaded.  A failed
+build raises with the compiler's output; nothing falls back to the plain
+PyTorch version.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {
+    "flash_attention": CSRC / "flash_attention.cu",
+    "rmsnorm": CSRC / "rmsnorm.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(put the CUDA toolkit's bin/ on PATH or set CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (``-Xptxas -v``: registers, spills, shared
+    memory per kernel) from the build of ``name``'s current source."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def build_all() -> list[str]:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together.  Returns the names built."""
+    todo = [n for n in SOURCES if not library_path(n).exists()]
+    if not todo:
+        return []
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        lib = library_path(n)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+        procs[n] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (cmd, tmp, proc) in procs.items():
+        output, _ = proc.communicate()
+        lib = library_path(n)
+        lib.with_suffix(".log").write_text(output)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"$ {' '.join(cmd)}\n{output}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return todo
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building all kernels first if
+    any library is missing."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LIBS[name] = lib
+        return lib
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` current for a launch through ctypes;
+    a no-op when it already is, so the usual call pays for no switch."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

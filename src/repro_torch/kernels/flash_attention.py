@@ -1,0 +1,74 @@
+"""Flash attention on Hopper: the wrapper of ``csrc/flash_attention.cu``.
+
+Replaces ``flash_attention_pallas`` of the JAX package's
+``kernels/flash_attention.py``.  The kernel is CUDA C++ for ``sm_90a``,
+built by ``kernels._build`` at first use and called through ctypes on
+PyTorch's current stream; see the source's header for its design and
+bound.  ``launches`` counts the kernel launches this wrapper made.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B,Sq,H,hd), k and v (B,Sk,KV,hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, H, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or k.shape[2] < 1 or H % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"want q, k, v all fp32 or all bf16; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device) or q.device.type != "cuda":
+        raise ValueError(f"want q, k, v on one CUDA device; got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True) -> torch.Tensor:
+    """GQA attention (B,Sq,H,hd) x (B,Sk,KV,hd) -> (B,Sq,H,hd) in q's dtype,
+    by the hand-written kernel.  Raises on anything it cannot launch."""
+    global launches
+    _check(q, k, v)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lib = _lib()
+    with _build.on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Sq, Sk, H, KV, hd, int(causal), 1.0 / (hd ** 0.5),
+            _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({err})")
+    launches += 1
+    return o
