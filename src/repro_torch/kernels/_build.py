@@ -11,7 +11,6 @@ PyTorch version.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -112,9 +111,13 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def on_device(device: torch.device):
-    """A context that makes ``device`` current for a launch through ctypes;
-    a no-op when it already is, so the usual call pays for no switch."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
+def call_on_stream(index: int, fn, *args) -> int:
+    """Call the ctypes entry point ``fn(*args, stream)`` with device
+    ``index`` current and its current stream's raw handle, as Triton's and
+    Inductor's launchers do: no ``torch.cuda.Stream`` is built, and the
+    device is switched only when it is not current already (one query)."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)

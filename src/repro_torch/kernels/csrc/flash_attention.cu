@@ -10,212 +10,396 @@
 //
 // Bound on an H100: at the serving prefill shape (B=4, S=512, H=32, KV=4,
 // hd=128, causal, fp32) the work is ~8.6 GFLOP against ~75 MB moved, so it
-// is bound by operations, not bytes: fp32 has no tensor-core path without
-// TF32, which leaves the CUDA cores' 67 TFLOP/s.
+// is bound by operations.  Plain fp32 runs on the CUDA cores (67 TFLOP/s,
+// 0.128 ms); one TF32 tensor-core product keeps only ~3 decimal digits and
+// misses the 2e-5 fp32 tolerance.
 //
 // What the design does about it:
-//   * One thread block per (batch x KV head, tile of 64 folded query rows).
-//     A folded row is (query position, head within the group), the Pallas
-//     kernel's GQA folding: the G query heads of a group share every K/V
-//     tile staged in shared memory, so K/V are read once per group.
-//   * A loop over 64-key tiles inside the block takes the place of the
-//     TPU's sequential kv grid axis.  Under causal masking the loop stops at
-//     the last tile any row of the block can see, so fully masked tiles
-//     cost nothing.
-//   * Both products are register-blocked SIMT: each of the 256 threads owns
-//     4 rows x 4 keys of the score tile and 4 rows x hd/16 columns of the
-//     fp32 accumulator, so every shared-memory value loaded feeds 4 FMAs.
-//     Row max and row sum are reduced with warp shuffles across the 16
-//     threads that share a row.  Padded row strides keep the q/k reads free
-//     of bank conflicts.
-//   * Tensor cores (wgmma), TMA and warp specialisation are later work; in
-//     fp32 they would also need TF32, which changes the numbers.
+//   * Both products run on the tensor cores as
+//     mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 with "3xTF32": every fp32
+//     operand a is split in registers into hi = tf32(a) and
+//     lo = tf32(a - hi), and a.b is taken as lo.hi + hi.lo + hi.hi with fp32
+//     accumulators.  That keeps ~fp32 accuracy at 3 tensor-core products, a
+//     bound of 3 x 8.6 GFLOP / 495 TFLOP/s = 0.052 ms.  bf16 operands are
+//     exact in TF32, so their lo terms are zero and skipped: a bf16 q.k is
+//     one product; p stays fp32 (as in the reference), so p.v is two.
+//     mma.sync rather than wgmma because the split happens on register
+//     fragments, which mma.sync takes directly; wgmma reads B from shared
+//     memory and would need hi and lo tiles of k and v.
+//   * The tensor core's own fp32 sums are kept short: q.k sums hi.hi and
+//     the two small terms in three accumulators (which also gives three
+//     independent dependency chains), and each kv tile's p.v goes to a fresh
+//     accumulator that is added to the running one by an fp32 fma.
+//   * One block per (batch x KV head, 16 folded query rows per warp); a
+//     folded row is (query position, head within the group), the Pallas
+//     kernel's GQA folding, so the G query heads of a group share every K/V
+//     tile.  A warp's score tile, its fp32 accumulator (16 x hd) and its
+//     running max and sum live in registers.  4 warps per block, or 8 for
+//     fp32 above hd=128, where one block fills the SM's shared memory.
+//   * A loop over 32-key tiles inside the block takes the place of the
+//     TPU's sequential kv grid axis.  K and V tiles arrive by 16-byte
+//     cp.async into a double-buffered ring: tile t+1 is in flight while tile
+//     t is computed.  Under causal masking the loop stops at the block's
+//     last visible tile, a warp skips the math of tiles none of its rows can
+//     see, and the row blocks that see the most tiles are scheduled first.
+//     Shared memory is 107 KB at hd=128 fp32, so two blocks share an SM.
+//   * Fragment loads are cheap: the k index of an mma step may map to any
+//     head-dim column as long as q and k agree, so each thread reads its q
+//     and k values for two steps with one 16-byte load; and the p.v step
+//     maps its k slots to the keys each thread already holds in its score
+//     accumulator, so p needs no shuffle and no trip through shared memory.
+//     Row strides are padded so that each warp's loads hit distinct banks.
+//   * Row max and row sum are reduced across the 4 threads of a quad, in
+//     the log2 domain so each exponential is one exp2.
+//   * cudaFuncSetAttribute runs once per instantiation and device, not per
+//     launch.
 //
 // Interface: plain C, loaded with ctypes.  The kernel launches on the
 // caller's stream, allocates nothing, and the entry point returns
-// cudaGetLastError() so a refused launch is reported.
+// cudaGetLastError() so a refused launch is reported.  q, k, v and o must
+// be 16-byte aligned (the wrapper sees to it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 64;          // folded query rows per block
-constexpr int kKeys = 64;          // keys per kv tile
-constexpr int kThreads = 256;      // a 16 x 16 grid of threads
-constexpr int kRowsPerThread = kRows / 16;
-constexpr int kKeysPerThread = kKeys / 16;
-constexpr float kNegInf = -1e30f;  // the reference's mask value
+constexpr int kKeys = 32;            // keys per kv tile
+constexpr int kKeyTiles = kKeys / 8; // n-tiles of the score product
+constexpr float kNegInf = -1e30f;    // the reference's mask value
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// Four consecutive values from shared memory in one access (16 bytes of
+// fp32, 8 of bf16); p is aligned for it.
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(v.x << 16), x[1] = __uint_as_float(v.x & 0xffff0000u);
+  x[2] = __uint_as_float(v.y << 16), x[3] = __uint_as_float(v.y & 0xffff0000u);
 }
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  // q tile and k tile with a padded stride, v tile, probability tile
-  return sizeof(float) * (size_t)(kRows * (HD + 1) + kKeys * (HD + 1) + kKeys * HD +
-                                  kRows * (kKeys + 1));
+template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
+template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
+template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
+                                                                  float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero
+// as cvt.rna.tf32.f32 does, in two integer operations: add half of the
+// dropped 13 bits' range to the bit pattern, then clear them.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// hi = tf32(x), lo = tf32(x - hi); x - hi is exact in fp32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a.b for one m16n8k8 TF32 tile.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The TF32 parts of N fragment values: hi, and lo where kSplit (an fp32
+// operand).  A bf16 operand widened to fp32 is exact in TF32 already: its
+// bits are passed as they are and it has no lo part.
+template <int N, bool kSplit>
+__device__ __forceinline__ void to_tf32(const float (&x)[N], uint32_t (&hi)[N],
+                                        uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (kSplit) split(x[i], hi[i], lo[i]);
+    else hi[i] = __float_as_uint(x[i]);
+  }
+}
+
+// 16-byte async copy global -> shared; src_bytes 0 fills the 16 bytes with 0.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The smallest n >= x with n % m == r.
+constexpr int pad_to(int x, int m, int r) { return x + ((r - x % m) % m + m) % m; }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+struct Layout {
+  // 4 warps, or 8 where one block of 4 would fill an SM's shared memory
+  // alone (fp32 above hd=128): 8 warps then share each K/V tile.
+  static constexpr int kWarps = sizeof(T) == 4 && HD > 128 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;  // folded query rows per block
+  static constexpr int kChunk = 16 / sizeof(T);        // elements per 16-byte copy
+  static constexpr int kChunksPerRow = HD / kChunk;
+  // Row strides in elements, padded so a warp's fragment loads hit distinct
+  // banks: the 4-value q and k loads of 8 (fp32) or 16 (bf16) threads
+  // need QS % 32 == 16; the scalar v loads of keys 2*tig need
+  // 2 * VS % 32 == 8 in fp32, VS % 32 == 8 in bf16.
+  static constexpr int QS = pad_to(HD, 32, 16);
+  static constexpr int VS = sizeof(T) == 4 ? pad_to(HD, 16, 4) : pad_to(HD, 32, 8);
+  static constexpr int kQ = kRows * QS;
+  static constexpr int kK = kKeys * QS;
+  static constexpr int kV = kKeys * VS;
+  static constexpr size_t kBytes = sizeof(T) * (size_t)(kQ + 2 * (kK + kV));
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  static_assert((QS * sizeof(T)) % 16 == 0 && (VS * sizeof(T)) % 16 == 0, "rows must stay 16-byte aligned");
+  static_assert(kBytes <= 232448, "tile does not fit shared memory");
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(Layout<T, HD>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
                  int H, int KV, int causal, float scale) {
-  constexpr int QS = HD + 1;        // padded stride of the q and k tiles
-  constexpr int PS = kKeys + 1;     // padded stride of the probability tile
-  constexpr int DPT = HD / 16;      // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;                // kRows x QS
-  float* k_s = q_s + kRows * QS;    // kKeys x QS
-  float* v_s = k_s + kKeys * QS;    // kKeys x HD
-  float* p_s = v_s + kKeys * HD;    // kRows x PS
+  using L = Layout<T, HD>;
+  constexpr bool kExact = sizeof(T) == 2;  // bf16: exact in TF32, no lo terms
+  constexpr int kNT = HD / 8;              // n-tiles of the accumulator
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + L::kQ;                    // 2 stages of kKeys x QS
+  T* v_s = k_s + 2 * L::kK;                // 2 stages of kKeys x VS
 
+  // Scores are kept in the log2 domain, s * scale * log2(e), so that
+  // exp(s * scale - max) is one exp2.
+  const float scale_log2 = scale * 1.4426950408889634f;
   const int G = H / KV;
-  const int b = blockIdx.y / KV;
-  const int kvh = blockIdx.y % KV;
-  const long long n_rows = (long long)Sq * G;
-  const long long row0 = (long long)blockIdx.x * kRows;
+  const int b = blockIdx.x / KV;
+  const int kvh = blockIdx.x % KV;
+  const int n_rows = Sq * G;  // < 2^31, checked at the entry point
+  // Row blocks run longest first: under causal masking the last rows see
+  // the most tiles, and scheduling them first keeps them out of the tail.
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * L::kRows;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;          // key / column index within the thread grid
-  const int ty = tid / 16;          // row index within the thread grid
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;  // mma fragment coordinates
 
   // Stage the q tile.  Folded row r is query position (row0 + r) / G and
-  // head kvh * G + (row0 + r) % G; consecutive rows of one position are
-  // consecutive heads, so a position's G*HD values are contiguous.
-  for (int e = tid; e < kRows * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const long long f = row0 + r;
-    float val = 0.f;
-    if (f < n_rows) {
-      const long long qpos = f / G;
-      const int h = kvh * G + (int)(f % G);
-      val = to_float(q[((b * (long long)Sq + qpos) * H + h) * HD + d]);
-    }
-    q_s[r * QS + d] = val;
+  // head kvh * G + (row0 + r) % G.
+  for (int e = tid; e < L::kRows * L::kChunksPerRow; e += L::kThreads) {
+    const int r = e / L::kChunksPerRow, c = e % L::kChunksPerRow;
+    const int f = row0 + r;
+    const bool ok = f < n_rows;
+    const int fc = ok ? f : 0;
+    const T* src = q + ((b * (long long)Sq + fc / G) * H + kvh * G + fc % G) * HD + c * L::kChunk;
+    cp_async16(q_s + r * L::QS + c * L::kChunk, src, ok);
   }
-
-  int qpos[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) qpos[i] = (int)((row0 + ty + 16 * i) / G);
+  auto load_kv = [&](int t, int stage) {
+    T* ks = k_s + stage * L::kK;
+    T* vs = v_s + stage * L::kV;
+    for (int e = tid; e < kKeys * L::kChunksPerRow; e += L::kThreads) {
+      const int j = e / L::kChunksPerRow, c = e % L::kChunksPerRow;
+      const int kp = t * kKeys + j;
+      const bool ok = kp < Sk;
+      const long long off = ((b * (long long)Sk + (ok ? kp : 0)) * KV + kvh) * HD + c * L::kChunk;
+      cp_async16(ks + j * L::QS + c * L::kChunk, k + off, ok);
+      cp_async16(vs + j * L::VS + c * L::kChunk, v + off, ok);
+    }
+  };
 
   const int n_kv_all = (Sk + kKeys - 1) / kKeys;
   int n_kv = n_kv_all;
-  if (causal) {
-    const long long last = (row0 + kRows < n_rows ? row0 + kRows : n_rows) - 1;
-    const int q_max = (int)(last / G);
-    n_kv = min(n_kv_all, q_max / kKeys + 1);
-  }
+  const int last_row = min(row0 + L::kRows, n_rows) - 1;
+  if (causal) n_kv = min(n_kv_all, last_row / G / kKeys + 1);
 
-  float m[kRowsPerThread], l[kRowsPerThread], acc[kRowsPerThread][DPT];
+  // This warp's rows: folded w_first .. w_last; this thread's two rows are
+  // w_first + g and w_first + g + 8.
+  const int w_first = row0 + 16 * warp;
+  const int w_last = min(w_first + 15, n_rows - 1);
+  const bool warp_has_rows = w_first < n_rows;
+  const int w_qmax = warp_has_rows ? w_last / G : -1;
+  int qpos[2];
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
+  for (int h = 0; h < 2; ++h) qpos[h] = (w_first + g + 8 * h) / G;
 
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  if (n_kv > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  const T* qw = q_s + (16 * warp) * L::QS;
   for (int t = 0; t < n_kv; ++t) {
+    if (t + 1 < n_kv) {
+      load_kv(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
     const int k0 = t * kKeys;
-    __syncthreads();  // the previous tile's readers are done with k_s, v_s, p_s
-    for (int e = tid; e < kKeys * HD; e += kThreads) {
-      const int j = e / HD, d = e % HD;
-      const int kp = k0 + j;
-      float kval = 0.f, vval = 0.f;
-      if (kp < Sk) {
-        const long long off = ((b * (long long)Sk + kp) * KV + kvh) * HD + d;
-        kval = to_float(k[off]);
-        vval = to_float(v[off]);
-      }
-      k_s[j * QS + d] = kval;
-      v_s[j * HD + d] = vval;
-    }
-    __syncthreads();
+    if (warp_has_rows && (!causal || k0 <= w_qmax)) {
+      const T* ks = k_s + (t & 1) * L::kK;
+      const T* vs = v_s + (t & 1) * L::kV;
 
-    // s = q k^T for this thread's 4 rows x 4 keys.
-    float s[kRowsPerThread][kKeysPerThread];
+      // s = q k^T: 16 rows x kKeys keys per warp.  The k index of an mma
+      // step is free to map to any head-dim column as long as q and k agree:
+      // steps 2j and 2j+1 give thread tig the columns 16j + 4*tig + {0, 1}
+      // and {2, 3}, so each thread reads its q and k values for two steps
+      // with one 4-value load.  The hi.hi products and the two small-term
+      // products go to three accumulators, so each dependency chain is
+      // HD/8 products long instead of 3 * HD/8.
+      float s[kKeyTiles][4], s_lh[kKeyTiles][4], s_hl[kKeyTiles][4];
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
+      for (int n = 0; n < kKeyTiles; ++n)
 #pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[kRowsPerThread], kv[kKeysPerThread];
+        for (int i = 0; i < 4; ++i) s[n][i] = s_lh[n][i] = s_hl[n][i] = 0.f;
+#pragma unroll 2
+      for (int j = 0; j < HD / 16; ++j) {
+        const int d0 = 16 * j + 4 * tig;
+        float qa[4], qb[4];  // rows g and g + 8
+        load4(qw + g * L::QS + d0, qa);
+        load4(qw + (g + 8) * L::QS + d0, qb);
+        float kv[kKeyTiles][4];
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) qv[i] = q_s[(ty + 16 * i) * QS + d];
+        for (int n = 0; n < kKeyTiles; ++n) load4(ks + (n * 8 + g) * L::QS + d0, kv[n]);
 #pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) kv[j] = k_s[(tx + 16 * j) * QS + d];
+        for (int h = 0; h < 2; ++h) {
+          const float a[4] = {qa[2 * h], qb[2 * h], qa[2 * h + 1], qb[2 * h + 1]};
+          uint32_t ah[4], al[4];
+          to_tf32<4, !kExact>(a, ah, al);
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
+          for (int n = 0; n < kKeyTiles; ++n) {
+            const float bb[2] = {kv[n][2 * h], kv[n][2 * h + 1]};
+            uint32_t bh[2], bl[2];
+            to_tf32<2, !kExact>(bb, bh, bl);
+            if (!kExact) {
+              mma(s_lh[n], al, bh);
+              mma(s_hl[n], ah, bl);
+            }
+            mma(s[n], ah, bh);
+          }
+        }
+      }
+      if (!kExact) {
 #pragma unroll
-        for (int j = 0; j < kKeysPerThread; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+        for (int n = 0; n < kKeyTiles; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[n][i] += s_lh[n][i] + s_hl[n][i];
+      }
 
-    // Online softmax.  The 16 threads of a row are lanes 0-15 or 16-31 of
-    // one warp, so xor shuffles by 8, 4, 2, 1 reduce exactly one row.
+      // Online softmax over this tile.  Thread holds rows g (s[n][0..1])
+      // and g + 8 (s[n][2..3]), keys k0 + 8n + 2*tig + {0, 1}.
+      float corr[2];
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      bool ok[kKeysPerThread];
-      float mx = kNegInf;
+      for (int h = 0; h < 2; ++h) {
+        float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        ok[j] = kp < Sk && (!causal || kp <= qpos[i]);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+        for (int n = 0; n < kKeyTiles; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kp = k0 + 8 * n + 2 * tig + e;
+            const bool ok = kp < Sk && (!causal || kp <= qpos[h]);
+            float& x = s[n][2 * h + e];
+            x = ok ? x * scale_log2 : kNegInf;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        corr[h] = exp2f(m[h] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < kKeyTiles; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[n][2 * h + e];
+            x = x > 0.5f * kNegInf ? exp2f(x - m_new) : 0.f;
+            rs += x;
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l[h] = l[h] * corr[h] + rs;
+        m[h] = m_new;
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        p_s[(ty + 16 * i) * PS + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
 
-    // acc += p v for this thread's 4 rows x HD/16 columns.
-#pragma unroll 4
-    for (int j = 0; j < kKeys; ++j) {
-      float pv[kRowsPerThread];
+      // p as the A operand of p v, with no data movement: step kk of p v
+      // maps k slot tig to key 8kk + 2*tig and slot tig + 4 to key
+      // 8kk + 2*tig + 1, which are the keys of this thread's own score
+      // values s[kk][0..3]; v's fragment follows the same map.
+      uint32_t ph[kKeyTiles][4], pl[kKeyTiles][4];
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) pv[i] = p_s[(ty + 16 * i) * PS + j];
+      for (int kk = 0; kk < kKeyTiles; ++kk) {
+        const float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+        to_tf32<4, true>(a, ph[kk], pl[kk]);
+      }
+
+      // acc = acc * corr + p v.  The tile's p v is summed in a fresh
+      // accumulator, kChunk n-tiles at a time, and added to acc by an fp32
+      // fma, so the tensor core's fp32 sums run over one tile's keys, not
+      // over the whole sequence.
+      constexpr int kChunk = 8;
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const float vv = v_s[j * HD + tx + 16 * c];
+      for (int c0 = 0; c0 < kNT; c0 += kChunk) {
+        float part[kChunk][4];
 #pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+        for (int n = 0; n < kChunk; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kKeyTiles; ++kk) {
+          const T* vr = vs + (kk * 8 + 2 * tig) * L::VS + g;
+#pragma unroll
+          for (int n = 0; n < kChunk; ++n) {
+            if (c0 + n >= kNT) break;
+            const float bb[2] = {to_float(vr[(c0 + n) * 8]),
+                                 to_float(vr[L::VS + (c0 + n) * 8])};
+            uint32_t bh[2], bl[2];
+            to_tf32<2, !kExact>(bb, bh, bl);
+            mma(part[n], pl[kk], bh);
+            if (!kExact) mma(part[n], ph[kk], bl);
+            mma(part[n], ph[kk], bh);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kChunk; ++n) {
+          if (c0 + n >= kNT) break;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[c0 + n][i] = fmaf(acc[c0 + n][i], corr[i / 2], part[n][i]);
+        }
       }
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
+  cp_async_wait<0>();  // no copy outlives the block (n_kv == 0 issues q alone)
 
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const long long f = row0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int f = w_first + g + 8 * h;
     if (f >= n_rows) continue;
-    const int h = kvh * G + (int)(f % G);
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* out = o + ((b * (long long)Sq + qpos[i]) * H + h) * HD;
+    const int head = kvh * G + f % G;
+    const float denom = fmaxf(l[h], 1e-30f);
+    T* out = o + ((b * (long long)Sq + qpos[h]) * H + head) * HD + 2 * tig;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) out[tx + 16 * c] = from_float<T>(acc[i][c] / denom);
+    for (int n = 0; n < kNT; ++n)
+      store2<T>(out + n * 8, acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
   }
 }
 
@@ -223,19 +407,33 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int Sq, int Sk, int H, int KV, int causal, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = Layout<T, HD>::kBytes;
   auto kernel = flash_fwd_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const long long n_rows = (long long)Sq * (H / KV);
-  const dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), (unsigned)(B * KV));
-  kernel<<<grid, kThreads, smem, stream>>>(
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) configured[dev] = true;
+  }
+  const int n_rows = Sq * (H / KV);
+  constexpr int kRows = Layout<T, HD>::kRows;
+  const long long n_blocks = ((long long)n_rows + kRows - 1) / kRows;
+  if (n_blocks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(B * KV), (unsigned)n_blocks);
+  kernel<<<grid, Layout<T, HD>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Sq, Sk, H, KV, causal, scale);
   return cudaGetLastError();
 }
 
+// One instantiation per head dim a ported config has: 16 (reduced configs),
+// 32, 64, 80 (stablelm-3b), 128 and 160 (pixtral-12b).
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
                         int B, int Sq, int Sk, int H, int KV, int hd, int causal,
@@ -244,7 +442,9 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
     case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
+    case 160: return launch<T, 160>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -255,7 +455,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int Sq, int Sk, int H, int KV,
                                    int hd, int causal, float scale, int is_bf16,
                                    void* stream) {
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || (long long)Sq * (H / KV) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =

@@ -14,21 +14,24 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+# Every head dim of a config the port serves: 16 (reduced configs), 32,
+# 64 (musicgen-medium), 80 (stablelm-3b), 128 and 160 (pixtral-12b).
+HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+_lib: ctypes.CDLL | None = None
 
 
-def _lib() -> ctypes.CDLL:
+def _load() -> ctypes.CDLL:
+    global _lib
     lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    _lib = lib
     return lib
 
 
@@ -51,23 +54,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v must be contiguous")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a copy where a view starts off the 16-byte grid
+    that the kernel's 16-byte copies need (a fresh allocation is on it)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True) -> torch.Tensor:
     """GQA attention (B,Sq,H,hd) x (B,Sk,KV,hd) -> (B,Sq,H,hd) in q's dtype,
     by the hand-written kernel.  Raises on anything it cannot launch."""
     global launches
     _check(q, k, v)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
-    lib = _lib()
-    with _build.on_device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Sq, Sk, H, KV, hd, int(causal), 1.0 / (hd ** 0.5),
-            _DTYPE_CODE[q.dtype], stream)
-    if err != 0:
+    lib = _lib or _load()
+    err = _build.call_on_stream(
+        q.device.index, lib.flash_attention_fwd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        B, Sq, Sk, H, KV, hd, int(causal), 1.0 / (hd ** 0.5),
+        _DTYPE_CODE[q.dtype])
+    if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({err})")
     launches += 1

@@ -26,8 +26,8 @@ def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 128,
 
     ``q_block`` and ``kv_block`` are the TPU kernel's tile sizes, kept so
     callers are interchangeable.  The Hopper kernel tiles by its own design
-    (64 folded query rows x 64 keys) and takes any Sq and Sk, and the result
-    does not depend on the block sizes beyond rounding.
+    (16 folded query rows per warp, 32-key tiles) and takes any Sq and Sk,
+    and the result does not depend on the block sizes beyond rounding.
     """
     if q_block < 1 or kv_block < 1:
         raise ValueError(f"block sizes must be positive: {q_block}, {kv_block}")

@@ -14,13 +14,18 @@ import torch
 from repro.kernels.ops import flash_attention as jax_flash_attention
 from repro.kernels.ops import rmsnorm as jax_rmsnorm
 from repro.models.attention import reference_attention as jax_reference_attention
+from repro_torch.configs.base import get_arch, list_archs
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.models.transformer import check_supported
 
 SHAPES = [
     # B, S, H, KV, hd
     (1, 128, 4, 4, 32),
     (2, 256, 8, 2, 64),   # GQA
     (2, 128, 4, 1, 64),   # MQA
+    (1, 128, 4, 4, 80),   # stablelm-3b's head dim, MHA
+    (1, 128, 8, 2, 160),  # pixtral-12b's head dim, GQA
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 NORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -59,6 +64,68 @@ def test_flash_attention_matches_pallas(shape, dtype):
     assert err <= ATTN_TOL[dtype], err
 
 
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_served_head_dim_has_a_kernel(arch):
+    cfg = get_arch(arch)
+    try:
+        check_supported(cfg)
+    except NotImplementedError:
+        return  # not served by the port yet
+    assert cfg.head_dim in HEAD_DIMS, (arch, cfg.head_dim)
+    assert cfg.reduced().head_dim in HEAD_DIMS, (arch, cfg.reduced().head_dim)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, by adding half of the dropped 13 bits' range to the
+    bit pattern and masking them off."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """a @ b on TF32 tensor cores as the kernel issues it: 3 products
+    lo.hi + hi.lo + hi.hi (small terms first), or hi.hi alone.  Products of
+    TF32 values are exact in fp32, so an fp32 matmul of them stands in for
+    the tensor core up to the order of its fp32 sums."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+@pytest.mark.parametrize("products", [3, 1])
+@pytest.mark.parametrize("group,S,hd", [(8, 512, 128), (1, 512, 80), (4, 512, 160)],
+                         ids=["yi-9b", "stablelm-3b", "pixtral-12b"])
+def test_3xtf32_meets_the_fp32_tolerance_and_1xtf32_does_not(group, S, hd, products):
+    # One KV group of the model's prefill, causal: q (G*S, hd) folded as
+    # the kernel folds it, k and v (S, hd), N(0, 1) inputs.
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((S, group, hd), dtype=np.float32)
+    k = rng.standard_normal((S, hd), dtype=np.float32)
+    v = rng.standard_normal((S, hd), dtype=np.float32)
+    mask = np.arange(S)[:, None, None] >= np.arange(S)[None, None, :]
+    scale = 1.0 / hd ** 0.5
+    # fp64 reference
+    s64 = np.einsum("qgd,kd->qgk", q.astype(np.float64), k.astype(np.float64)) * scale
+    s64 = np.where(mask, s64, -np.inf)
+    p64 = np.exp(s64 - s64.max(-1, keepdims=True))
+    want = np.einsum("qgk,kd->qgd", p64 / p64.sum(-1, keepdims=True), v.astype(np.float64))
+    # the kernel's arithmetic: fp32 scores, fp32 p, both products in TF32
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    s = _mm_tf32(qt.reshape(S * group, hd), kt.T, products).reshape(S, group, S) * scale
+    s = torch.where(torch.from_numpy(mask), s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _mm_tf32(p.reshape(S * group, S), vt, products).reshape(S, group, hd)
+    got = (o / p.sum(-1, keepdim=True)).numpy()
+    err = np.abs(got - want).max()
+    if products == 3:
+        assert err <= ATTN_TOL["float32"], err
+    else:
+        assert err > 10 * ATTN_TOL["float32"], err
+
+
 @pytest.mark.parametrize("blocks", [(64, 64), (128, 64), (64, 128)])
 def test_flash_attention_block_sizes_do_not_change_result(blocks):
     (qt, qj), (kt, kj), (vt, vj) = _qkv(1, 1, 256, 256, 4, 2, 32, "float32")
@@ -77,7 +144,8 @@ def test_flash_attention_ragged_matches_reference(causal, sq, sk):
     assert np.abs(_np(got) - _np(want)).max() <= 2e-5
 
 
-@pytest.mark.parametrize("rows,d", [(4, 64), (37, 96), (256, 128), (1, 32)])
+@pytest.mark.parametrize("rows,d", [(4, 64), (37, 96), (256, 128), (1, 32),
+                                    (4, 2560)])  # stablelm-3b's decode width
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_matches_pallas(rows, d, dtype):
     rng = np.random.default_rng(3)
@@ -118,6 +186,33 @@ def test_other_devices_and_bad_blocks_raise():
                             torch.zeros(1, 4, 1, 16), q_block=0)
     with pytest.raises(ValueError):
         ops.rmsnorm(torch.zeros(2, 4), torch.ones(4), row_block=0)
+
+
+@pytest.mark.parametrize("x,scale,err,match", [
+    (torch.zeros(2, 8), torch.ones(8), ValueError, "one CUDA device"),
+    (torch.zeros(2, 8), torch.ones(4), ValueError, "scale"),
+    (torch.zeros(()), torch.ones(1), ValueError, "want x"),
+    (torch.zeros(2, 8193), torch.ones(8193), ValueError, "8192"),
+    (torch.zeros(2, 8, dtype=torch.float16), torch.ones(8), TypeError, "fp32 or bf16"),
+], ids=["cpu", "scale-shape", "0-d", "too-wide", "fp16"])
+def test_rmsnorm_wrapper_refuses_what_the_kernel_cannot_take(x, scale, err, match):
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    with pytest.raises(err, match=match):
+        rmsnorm_cuda(x, scale)
+
+
+@pytest.mark.parametrize("q,kv,err,match", [
+    ((1, 4, 2, 32), (1, 4, 1, 32), ValueError, "one CUDA device"),
+    ((1, 4, 2, 96), (1, 4, 1, 96), ValueError, "head_dim 96"),
+    ((1, 4, 3, 32), (1, 4, 2, 32), ValueError, "does not fit"),
+    ((1, 4, 2, 32), (1, 4, 1, 16), ValueError, "does not fit"),
+], ids=["cpu", "head-dim", "groups", "widths"])
+def test_flash_wrapper_refuses_what_the_kernel_cannot_take(q, kv, err, match):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    with pytest.raises(err, match=match):
+        flash_attention_cuda(torch.zeros(q), torch.zeros(kv), torch.zeros(kv))
 
 
 def test_build_names_libraries_by_source_and_honours_build_dir(monkeypatch, tmp_path):

@@ -35,8 +35,8 @@ def _env():
     return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
 
 
-def _jax_params(seed=0):
-    m = JaxModel(jax_get_arch("yi-9b").reduced(), JaxRunConfig())
+def _jax_params(seed=0, arch="yi-9b"):
+    m = JaxModel(jax_get_arch(arch).reduced(), JaxRunConfig())
     params, _ = m.init(jax.random.key(seed))
     return jax.tree.map(np.asarray, jax.device_get(params))
 
@@ -52,6 +52,16 @@ def test_serve_generates_the_jax_tokens():
     assert got.tokens_generated == want.tokens_generated == 20
     assert got.logits_finite and 0 <= got.prefill_s <= got.wall_s
     assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+
+
+def test_stablelm_serve_generates_the_jax_tokens():
+    # stablelm-3b is the config the card serves at head dim 80.
+    want = jax_serve("stablelm-3b", **SMALL)
+    got = serve("stablelm-3b", device="cpu",
+                params=params_from_jax(_jax_params(arch="stablelm-3b")), **SMALL)
+    assert len(got.outputs) == len(want.outputs) == 5
+    for g, w in zip(got.outputs, want.outputs):
+        np.testing.assert_array_equal(g, np.asarray(w))
 
 
 def test_serve_is_deterministic_in_its_seed():
