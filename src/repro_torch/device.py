@@ -1,0 +1,21 @@
+"""Device selection shared by every entry point of the port."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raise if it asks for CUDA on a machine
+    without it, rather than carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but CUDA is not available; "
+            f"pass device='cpu' to run the plain PyTorch versions")
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for all work queued on ``device``; the CPU has none queued."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -13,19 +13,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, get_arch
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.transformer import RunConfig
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raise if it asks for CUDA on a machine
-    without it, rather than carrying on on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but CUDA is not available; "
-            f"pass device='cpu' to run the plain PyTorch versions")
-    return dev
 
 
 class Model:

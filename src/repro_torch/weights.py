@@ -1,5 +1,8 @@
 """Carry parameters over from the JAX package.
 
+``perf_model_from_jax`` turns a JAX ``PerformanceModel`` (its feature
+pipeline and ``mlp_params``) into the port's, on the CPU.
+
 ``params_from_jax`` takes the tree that the JAX ``Model.init(...)[0]``
 returns, after ``jax.device_get`` / ``np.asarray`` (nested dicts of numpy
 arrays), and returns the port's parameters.  Both packages keep the same
@@ -47,3 +50,16 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def perf_model_from_jax(jax_model):
+    """The port's ``PerformanceModel`` holding the same feature pipeline
+    and MLP weights as the JAX package's ``jax_model``, on the CPU
+    (``.to(device)`` moves it)."""
+    from repro_torch.core.modeling.perf_model import (FeaturePipeline,
+                                                      PerformanceModel)
+
+    pipe = FeaturePipeline.from_arrays(jax_model.pipeline.to_arrays())
+    params = [{k: _tensor(np.asarray(layer[k], np.float32), "cpu")
+               for k in ("w", "b")} for layer in jax_model.mlp_params]
+    return PerformanceModel(pipe, params, tuple(jax_model.hidden))
