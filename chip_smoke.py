@@ -30,8 +30,18 @@ On one NVIDIA card (written for an H100) it
    MLP trained on the card, train, publish to ``build/models``), the
    12-cell table with ``host-pipelined`` at each best config, the
    heuristic's score, and the published artifact read back;
-6. prints an ``{"autotune": {...}}`` line, a ``{"kernels": [...]}`` line
-   and, last, ``{"ok": true, ...}``.
+6. serves adaptively on the card (``repro_torch.serving``): bootstraps a
+   model from an empty registry; serves 24 requests of the 6 programs at
+   their largest dataset over 4 isolated tenants with the autotune phase's
+   artifact, serially on ``host-sync`` and ``host-pipelined``, warm at
+   window 1 and window 4 on ``host-sync``, and cold at window 4 on
+   ``host-threads``, every output against the port on the CPU; runs the
+   poison -> drift -> refinement drill and the ``adaptive_serve`` entry
+   point with its trace and metrics files; prints requests/s, latency,
+   stage times, hit rate, configs, the capacity probe, the pinning cost
+   and the device's idle share;
+7. prints an ``{"autotune": {...}}`` line, a ``{"serving": {...}}`` line,
+   a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero.  Without CUDA, or without this
 checkout's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -393,9 +403,13 @@ def main() -> int:
     # -- 5. the streamed-autotuning loop ---------------------------------------
     autotune = autotune_phase(torch, dev)
 
-    # -- 6. result -------------------------------------------------------------
+    # -- 6. adaptive serving ---------------------------------------------------
+    serving = serving_phase(torch, dev, autotune["artifact_id"])
+
+    # -- 7. result -------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"autotune": autotune}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -480,8 +494,8 @@ def autotune_phase(torch, dev):
     no_d2h = []
     for _ in range(5):
         t0 = time.perf_counter()
-        runner.dispatch(wide)
-        torch.cuda.synchronize(dev)
+        runner.issue(wide)
+        runner.ctx.wait()
         no_d2h.append(time.perf_counter() - t0)
     with_d2h = runner.run(wide, reps=5, warmed=True)
     d2h_us = (with_d2h - min(no_d2h)) / (wide.partitions * wide.tasks) * 1e6
@@ -493,11 +507,13 @@ def autotune_phase(torch, dev):
     b_runner = StreamedRunner(binomial, *binomial.make_data(
         binomial.datasets[-1], np.random.default_rng(0)), device=dev)
     b_runner.warmup(SINGLE_STREAM)
-    for label, r, c in ((f"vecadd@{wl.datasets[-1]}", runner, SINGLE_STREAM),
-                        (f"vecadd@{wl.datasets[-1]}", runner, wide),
-                        (f"binomial@{binomial.datasets[-1]}", b_runner, SINGLE_STREAM)):
-        device_share(torch, f"{label} {c.as_tuple()}",
-                     lambda: r.run(c, reps=1, warmed=True))
+    for i, (label, r, c) in enumerate((
+            (f"vecadd@{wl.datasets[-1]}", runner, SINGLE_STREAM),
+            (f"vecadd@{wl.datasets[-1]}", runner, wide),
+            (f"binomial@{binomial.datasets[-1]}", b_runner, SINGLE_STREAM))):
+        _, idle, _ = device_idle(torch, lambda: r.run(c, reps=1, warmed=True),
+                                 os.path.join(ROOT, "build", "chip_smoke", f"profile_runner_{i}.json"))
+        print(f"autotune: profile {label} {c.as_tuple()}: {idle_line(idle)}")
 
     print("autotune: train_model on the card (profile, LOO, train, publish)")
     cache = os.path.join(ROOT, "build", "chip_smoke", "profile_cache_cuda.json")
@@ -567,27 +583,474 @@ def autotune_phase(torch, dev):
                 artifact_id=summary["artifact_id"], phase_s=phase_s)
 
 
-def device_share(torch, label, fn):
-    """One timed runner call under torch.profiler: wall time, the device's
-    busy time split into copies and kernels, and the idle share."""
+def serving_phase(torch, dev, artifact_id):
+    """Adaptive serving on ``dev``: bootstrap from an empty registry, the
+    checked serial runs at every program's largest registered dataset,
+    the window-4 runs, the poison drill and the ``adaptive_serve`` entry
+    point.  Returns the summary it prints; every failed check raises."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.autotuner import TuningCache
+    from repro_torch.core.backends import base as backend_base
+    from repro_torch.core.modeling.search import search_best
+    from repro_torch.core.stream_config import SINGLE_STREAM
+    from repro_torch.core.streams import StreamedRunner, probe_host_capacity
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.launch.serve import resolve_serving_model
+    from repro_torch.launch.train_model import DEFAULT_TRAIN_PROGRAMS
+    from repro_torch.serving import (AdaptiveScheduler, ConcurrentScheduler,
+                                     DriftDetector, Tracer,
+                                     aggregate_stage_times, latency_stats,
+                                     make_trace)
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke", "serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+
+    # -- bootstrap: "latest" in an empty registry trains and publishes one
+    empty = tempfile.mkdtemp(dir=work)
+    prev = os.environ.get("REPRO_TORCH_PROFILE_CACHE")
+    os.environ["REPRO_TORCH_PROFILE_CACHE"] = os.path.join(empty, "profile.json")
+    try:
+        t0 = time.perf_counter()
+        boot, boot_info = resolve_serving_model(
+            "latest", os.path.join(empty, "models"), device=dev, verbose=False)
+        bootstrap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, again = resolve_serving_model(
+            "latest", os.path.join(empty, "models"), device=dev, verbose=False)
+        reload_s = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            del os.environ["REPRO_TORCH_PROFILE_CACHE"]
+        else:
+            os.environ["REPRO_TORCH_PROFILE_CACHE"] = prev
+    if (again["artifact_id"] != boot_info["artifact_id"] or boot_info["kind"] != "mlp"
+            or boot.device.type != torch.device(dev).type):
+        raise SystemExit(f"bootstrap failed: {boot_info}, reloaded {again}")
+    print(f"serving: bootstrap from an empty registry published "
+          f"{boot_info['artifact_id']} (LOO frac_of_oracle "
+          f"{boot_info['cv_frac_of_oracle']:.4f}) in {bootstrap_s:.1f} s; "
+          f"reloaded in {reload_s:.3f} s")
+    out["bootstrap_s"] = bootstrap_s
+
+    # -- the served model and trace: 6 programs x 4 occurrences, 4 tenants
+    model, info = resolve_serving_model(artifact_id, os.path.join(ROOT, "build", "models"),
+                                        device=dev, verbose=False)
+    programs = DEFAULT_TRAIN_PROGRAMS
+    scale_index = max(len(get_workload(p).datasets) for p in programs) - 1
+    trace = make_trace(programs, occurrences=4, scale_index=scale_index, tenants=4, seed=0)
+    mb = sum(a.nbytes for r in trace for d in (r.chunked, r.shared) for a in d.values()) / 1e6
+    print(f"serving: {len(trace)} requests, "
+          f"{sorted({f'{r.workload}@{next(iter(r.chunked.values())).shape[0]}' for r in trace})}, "
+          f"{mb:.1f} MB of inputs, model {info['artifact_id']}")
+    for r in trace:
+        if get_workload(r.workload).combine != "concat":
+            raise SystemExit(f"{r.workload} does not concatenate its slices")
+
+    def fresh():
+        return [dataclasses.replace(r, seq=-1, arrival_s=None, trace_id=None) for r in trace]
+
+    def cat(outs):
+        return torch.cat([o.reshape(o.shape[0], -1) for o in outs]).cpu().numpy()
+
+    t0 = time.perf_counter()
+    refs = [cat(StreamedRunner(get_workload(r.workload), r.chunked, r.shared, device="cpu")
+                .dispatch(SINGLE_STREAM)) for r in trace]
+    print(f"serving: CPU references in {time.perf_counter() - t0:.1f} s")
+    n_buckets = len({(r.workload, r.tenant) for r in trace})
+
+    # pinning instrumentation: seconds and bytes spent page-locking inputs
+    pinned = {"s": 0.0, "bytes": 0}
+    orig_host_tensors = backend_base._host_tensors
+
+    def timed_host_tensors(arrs, device):
+        t0 = time.perf_counter()
+        got = orig_host_tensors(arrs, device)
+        pinned["s"] += time.perf_counter() - t0
+        pinned["bytes"] += sum(a.nbytes for a in arrs.values())
+        return got
+
+    def check(label, results, sched, *, cold):
+        """Outputs against the CPU, decision order, cache hits."""
+        # the queue numbers requests on, over a scheduler's passes
+        first = results[0].request.seq if results else 0
+        if [r.request.seq - first for r in results] != list(range(len(trace))):
+            raise SystemExit(f"{label}: results not in decision order")
+        worst = 0.0
+        for i, r in enumerate(results):
+            if r.status != "served":
+                raise SystemExit(f"{label}: request {i} {r.status}: {r.error}")
+            rtol, atol = WL_TOL.get(r.request.workload, (WL_RTOL, WL_ATOL))
+            got, want = cat(r.outputs), refs[i]
+            tol = atol + rtol * np.abs(want)
+            if (len(r.outputs) != r.config.partitions * r.config.tasks
+                    or got.shape != want.shape or not np.isfinite(got).all()
+                    or not (np.abs(got - want) <= tol).all()):
+                raise SystemExit(f"{label}: request {i} ({r.request.workload}) "
+                                 f"differs from the CPU: max abs err "
+                                 f"{np.abs(got - want).max():.3e}")
+            worst = max(worst, float((np.abs(got - want) / tol).max()))
+        seen, want_hits = set(), []
+        for r in results:
+            want_hits.append(r.sample.key in seen if cold else True)
+            seen.add(r.sample.key)
+        if [r.cache_hit for r in results] != want_hits or len(seen) != n_buckets:
+            raise SystemExit(f"{label}: cache hits {[r.cache_hit for r in results]}, "
+                             f"expected {want_hits} over {n_buckets} buckets")
+        # buckets ranked by the model: one search each on the serial
+        # scheduler; the engine ranks a window's cold buckets in one
+        # batched search
+        st = sched.stats
+        searched = (st["model_searches"] - st["batched_searches"]
+                    + st["batched_search_programs"])
+        if searched != (n_buckets if cold else 0) or (
+                cold and isinstance(sched, AdaptiveScheduler)
+                and not isinstance(sched, ConcurrentScheduler)
+                and st["model_searches"] != n_buckets):
+            raise SystemExit(f"{label}: {dict(st)} for {n_buckets} buckets")
+        return worst
+
+    def report(label, sched, results, wall, spans, pin):
+        lat = latency_stats([r.sample.latency_s for r in results])
+        stages = aggregate_stage_times(spans)
+        hits = sum(r.cache_hit for r in results)
+        configs = {}
+        for r in results:
+            configs.setdefault(f"{r.request.workload}/{r.request.tenant}",
+                               "x".join(map(str, r.config.as_tuple())))
+        row = dict(requests=len(results), wall_s=wall, rps=len(results) / wall,
+                   p50_ms=lat["p50_s"] * 1e3, p99_ms=lat["p99_s"] * 1e3,
+                   stage_s={s: v["wall_s"] for s, v in stages.items()},
+                   hit_rate=hits / len(results),
+                   model_searches=sched.stats["model_searches"],
+                   refinements=sched.stats["refinements"],
+                   pin_s=pin[0], pin_mb=pin[1] / 1e6,
+                   pin_ms_per_mb=pin[0] * 1e3 / max(pin[1] / 1e6, 1e-9),
+                   configs=configs)
+        print(f"serving: {label}: {row['requests']} requests in {wall:.3f} s = "
+              f"{row['rps']:.1f} requests/s; latency p50 {row['p50_ms']:.2f} ms, p99 "
+              f"{row['p99_ms']:.2f} ms; stages " + ", ".join(
+                  f"{s} {v:.3f} s" for s, v in row["stage_s"].items())
+              + f"; hit rate {row['hit_rate']:.3f}, model searches "
+              f"{row['model_searches']}, refinements {row['refinements']}; pinning "
+              f"{pin[0]:.3f} s for {row['pin_mb']:.1f} MB ({row['pin_ms_per_mb']:.4f} ms/MB, "
+              f"{pin[0] / max(row['stage_s']['decide'], 1e-12):.1%} of decide)")
+        print(f"  configs {configs}")
+        return row
+
+    def scheduler(backend, window, cache, drift):
+        common = dict(device=dev, backend=backend, cache=cache, drift=drift,
+                      isolate_tenants=True, model_tag=info["artifact_id"],
+                      keep_outputs=True, tracer=Tracer())
+        if window > 1:
+            return ConcurrentScheduler(model, window=window, workers=window, **common)
+        return AdaptiveScheduler(model, **common)
+
+    def serve_pass(sched, profile_to=None):
+        n_spans = len(sched.tracer.spans)
+        pin0 = (pinned["s"], pinned["bytes"])
+        sched.submit_all(fresh())
+        if profile_to is None:
+            t0 = time.perf_counter()
+            results = sched.run()
+            wall = time.perf_counter() - t0
+            idle = None
+        else:
+            results, idle, _ = device_idle(torch, sched.run, profile_to)
+            wall = idle["wall_ms"] / 1e3
+        pin = (pinned["s"] - pin0[0], pinned["bytes"] - pin0[1])
+        return results, wall, sched.tracer.spans[n_spans:], pin, idle
+
+    backend_base._host_tensors = timed_host_tensors
+    try:
+        # serial, cold: the checked runs
+        caches = {}
+        for backend in ("host-sync", "host-pipelined"):
+            label = f"serial {backend}, cold"
+            caches[backend] = os.path.join(work, f"cache_{backend}.json")
+            with scheduler(backend, 1, TuningCache(caches[backend]),
+                           DriftDetector(threshold=4.0)) as sched:
+                results, wall, spans, pin, _ = serve_pass(sched)
+                worst = check(label, results, sched, cold=True)
+                out[label] = report(label, sched, results, wall, spans, pin)
+                out[label]["worst_err_over_tol"] = worst
+                sched.cache.save()
+                if backend == "host-sync":
+                    cold_configs = {r.sample.key: sched.cache.peek(r.sample.key).config.as_tuple()
+                                    for r in results}
+
+        # warm from the serial cache, drift off so no entry moves: window 1
+        # against window 4 on host-sync; pass 1 measures the persisted
+        # entries' anchors, pass 2 is timed, pass 3 runs under the profiler
+        warm = {}
+        for window in (1, 4):
+            label = f"window {window} host-sync, warm"
+            with scheduler("host-sync", window, TuningCache(caches["host-sync"]),
+                           DriftDetector(threshold=float("inf"))) as sched:
+                first, *_ = serve_pass(sched)
+                check(label + " pass 1", first, sched, cold=False)
+                results, wall, spans, pin, _ = serve_pass(sched)
+                check(label, results, sched, cold=False)
+                got = [r.config.as_tuple() for r in results]
+                if got != [cold_configs[r.sample.key] for r in results]:
+                    raise SystemExit(f"{label}: configs {got} differ from the serial run's")
+                out[label] = report(label, sched, results, wall, spans, pin)
+                warm[window] = out[label]
+                profiled, _, _, _, idle = serve_pass(
+                    sched, os.path.join(work, f"profile_w{window}.json"))
+                check(label + " profiled", profiled, sched, cold=False)
+                out[label]["device_idle"] = idle
+                print(f"  under the profiler: {idle_line(idle)}")
+                if window > 1:
+                    out["parallel_capacity_4"] = sched.parallel_capacity
+                    out["ctx_reuses"] = sched.stats["ctx_reuses"]
+        # the engine floors the probe at 1.0; the probe's own reading too
+        out["probe_4_raw"] = probe_host_capacity(4, device=dev)
+        print(f"serving: window 4 over window 1 (warm, host-sync): "
+              f"{warm[4]['rps'] / warm[1]['rps']:.3f}x requests/s; parallel_capacity "
+              f"for 4 workers {out['parallel_capacity_4']:.3f} (probe "
+              f"{out['probe_4_raw']:.3f} before the engine's floor of 1)")
+
+        # window 4 on host-threads, cold: the batched cold search on a
+        # quiesced pool; each pick is the serial search on the same features
+        label = "window 4 host-threads, cold"
+        with scheduler("host-threads", 4, TuningCache(),
+                       DriftDetector(threshold=float("inf"))) as sched:
+            results, wall, spans, pin, _ = serve_pass(sched)
+            check(label, results, sched, cold=True)
+            same_as_serial = 0
+            for r in results:
+                if r.cache_hit:
+                    continue
+                n_rows = next(iter(r.request.chunked.values())).shape[0]
+                cands = sched._feasible_configs(n_rows)
+                # the serial search on the same features, up to the fp32
+                # rounding of a batched against a one-program forward pass
+                want, preds, _ = search_best(model, sched._feats[r.sample.key], cands)
+                got = preds[cands.index(r.config)]
+                if got < preds.max() - 1e-5 * abs(preds.max()):
+                    raise SystemExit(f"{label}: {r.sample.key} got {r.config} "
+                                     f"(predicted {got:.6f}), the serial search on its "
+                                     f"features picks {want} ({preds.max():.6f})")
+                host_sync_key = r.sample.key.replace("|host-threads|", "|host-sync|")
+                same_as_serial += r.config.as_tuple() == cold_configs[host_sync_key]
+            out[label] = report(label, sched, results, wall, spans, pin)
+            out[label]["picks_equal_serial_host_sync"] = same_as_serial
+            print(f"  cold picks equal to the serial host-sync run's: "
+                  f"{same_as_serial} of {n_buckets}")
+    finally:
+        backend_base._host_tensors = orig_host_tensors
+
+    out["host_copies"] = host_copy_scaling(torch, dev, trace)
+    out["poison_drill"] = poison_drill(torch, dev)
+    out["cli"] = cli_run(dev, artifact_id, work)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serving: phase {out['phase_s']:.1f} s")
+    return out
+
+
+def host_copy_scaling(torch, dev, trace):
+    """The two host copies every served request makes — pinning its
+    inputs in decide, the pageable ``.cpu()`` of its outputs in dispatch
+    — in GB/s, over the trace's 16-25 MB inputs issued from 1 thread and
+    from 4 at once (each thread on its own stream; best of 3): whether
+    the host's copy path scales with the window."""
+    from repro_torch.core.backends import WindowedPool
+
+    arrays = [a for r in trace for a in r.chunked.values() if a.nbytes >= 8e6][:8]
+    tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+    torch.cuda.synchronize()
+    n_bytes = sum(a.nbytes for a in arrays)
+
+    def pin(i):
+        torch.from_numpy(arrays[i]).pin_memory()
+
+    pool = WindowedPool(4, 4, name="host-copies")
+
+    def read(i):
+        with torch.cuda.stream(pool.thread_stream(tensors[i].device)):
+            tensors[i].cpu()
+
+    out = {}
+    try:
+        for name, fn in (("pin", pin), ("readback", read)):
+            for threads in (1, 4):
+                best = float("inf")
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    if threads == 1:
+                        for i in range(len(arrays)):
+                            fn(i)
+                    else:
+                        list(pool.executor().map(fn, range(len(arrays))))
+                    best = min(best, time.perf_counter() - t0)
+                out[f"{name}_gbps_{threads}"] = n_bytes / best / 1e9
+    finally:
+        pool.shutdown()
+    print(f"serving: host copies over {len(arrays)} arrays, {n_bytes / 1e6:.1f} MB: pinning "
+          f"{out['pin_gbps_1']:.2f} GB/s from 1 thread, {out['pin_gbps_4']:.2f} from 4; "
+          f"pageable readback {out['readback_gbps_1']:.2f} GB/s from 1 thread, "
+          f"{out['readback_gbps_4']:.2f} from 4")
+    return out
+
+
+class _CalibratedStub:
+    """Speedup 1.0 for every config, with a recording refit: the search
+    picks single-stream and predicted runtime is the profiled anchor."""
+
+    def __init__(self):
+        self.refits = 0
+
+    def predict_configs(self, feats, candidates):
+        import numpy as np
+
+        F = np.asarray(feats)
+        preds = np.ones((np.atleast_2d(F).shape[0], len(candidates)))
+        return preds[0] if F.ndim == 1 else preds
+
+    def refit(self, X, y, **kw):
+        self.refits += 1
+        return 0.0
+
+
+def poison_drill(torch, dev):
+    """``tests/test_serving.py``'s end-to-end drill on ``dev``: measured
+    times pinned to the bucket's anchor, one entry's predicted speedup
+    inflated 40x, six more requests of that bucket: exactly one
+    refinement, then warm hits of the refined entry."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.stream_config import SINGLE_STREAM
+    from repro_torch.core.streams import StreamedRunner
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.serving import (AdaptiveScheduler, DriftDetector,
+                                     WorkloadRequest, make_trace)
+
+    class Pinned(AdaptiveScheduler):
+        def _execute(self, pending):
+            outs, measured = super()._execute(pending)
+            return outs, self._t_single.get(pending.key, measured)
+
+    stub = _CalibratedStub()
+    sched = Pinned(stub, device=dev, backend="host-sync",
+                   drift=DriftDetector(window=8, threshold=6.0, min_samples=2, cooldown=2))
+    trace = make_trace(["vecadd", "dotprod", "mvmult"], occurrences=2, seed=0)
+    sched.submit_all(trace)
+    first = sched.run()
+    if ([r.cache_hit for r in first] != [False] * 3 + [True] * 3
+            or sched.stats["model_searches"] != 3 or sched.stats["refinements"] != 0):
+        raise SystemExit(f"poison drill: first pass {[r.cache_hit for r in first]}, "
+                         f"{dict(sched.stats)}")
+    key = sched.cache.key("vecadd", trace[0].chunked, trace[0].shared, "host-sync", "")
+    entry = sched.cache.get(key)
+    sched.cache.put(key, dataclasses.replace(
+        entry, predicted_speedup=entry.predicted_speedup * 40.0))
+    wl = get_workload("vecadd")
+    rows = next(iter(trace[0].chunked.values())).shape[0]  # the poisoned bucket's
+    for seed in range(10, 16):
+        chunked, shared = wl.make_data(rows, np.random.default_rng(seed))
+        sched.submit(WorkloadRequest(workload="vecadd", chunked=chunked, shared=shared))
+    post = sched.run()
+    refined = [i for i, r in enumerate(post) if r.refined]
+    after = post[refined[0] + 1:] if refined else []
+    ok = (sched.stats["refinements"] == 1 and len(refined) == 1 and stub.refits == 1
+          and after and all(r.cache_hit and r.sample.source == "refined" for r in after))
+    for r in first + post:
+        want = StreamedRunner(get_workload(r.request.workload), r.request.chunked,
+                              r.request.shared, device="cpu").dispatch(SINGLE_STREAM)[0]
+        got = torch.cat([o.cpu() for o in r.outputs])
+        ok &= bool(np.allclose(got.numpy(), want.numpy(), rtol=WL_RTOL, atol=WL_ATOL))
+    errs = [round(r.sample.rel_error, 4) for r in post]
+    print(f"serving: poison drill on the card: refinements {sched.stats['refinements']} "
+          f"(at post request {refined}), refits {stub.refits}, post rel errors {errs}, "
+          f"sources {[r.sample.source for r in post]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("poison drill failed")
+    return dict(refinements=1, refined_at=refined[0], rel_errors=errs)
+
+
+def cli_run(dev, artifact_id, work):
+    """``adaptive_serve`` through its public signature, with span tracing
+    and metrics written under build/."""
+    from repro_torch.launch.serve import adaptive_serve
+    from repro_torch.launch.train_model import DEFAULT_TRAIN_PROGRAMS
+
+    trace_out = os.path.join(work, "serve_trace.json")
+    metrics_out = os.path.join(work, "serve_metrics.json")
+    summary = adaptive_serve(DEFAULT_TRAIN_PROGRAMS, n_requests=12, backend="host-threads",
+                             window=4, tenants=4, model=artifact_id,
+                             model_dir=os.path.join(ROOT, "build", "models"),
+                             trace_out=trace_out, metrics_out=metrics_out,
+                             verbose=False, device=dev)
+    with open(trace_out) as f:
+        events = json.load(f)["traceEvents"]
+    with open(trace_out[:-5] + ".jsonl") as f:
+        spans = [json.loads(line) for line in f if line.strip()]
+    with open(metrics_out) as f:
+        metrics = json.load(f)
+    ok = (summary["requests"] == 12 and summary["by_status"] == {"ok": 12}
+          and len(spans) > 0 and len(events) >= len(spans)
+          and "serving.requests" in metrics)
+    print(f"serving: adaptive_serve(window=4, host-threads, 4 tenants): "
+          f"{summary['requests']} requests, {summary['throughput_rps']:.1f} requests/s, "
+          f"hit rate {summary['hit_rate']:.3f}; {len(spans)} spans -> {trace_out}, "
+          f"{len(metrics)} metric families -> {metrics_out} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"adaptive_serve failed: {summary}")
+    return dict(requests=summary["requests"], rps=summary["throughput_rps"],
+                hit_rate=summary["hit_rate"], spans=len(spans), metrics=len(metrics))
+
+
+def device_idle(torch, fn, path):
+    """``fn()`` under torch.profiler (device activity only; the trace goes
+    to ``path``): its wall time, the device's busy time as the union of
+    its kernel, copy and memset intervals on every stream (overlapping
+    streams count once), kernels and copies each summed apart, and the
+    idle share.  Raises when the trace holds no device event.  Returns
+    ``(fn's result, stats, the profiler)``."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ms = {"copies": 0.0, "kernels": 0.0}
-    launches = 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-            ms["copies" if "Memcpy" in e.key else "kernels"] += us / 1e3
-            launches += e.count
-    busy = ms["copies"] + ms["kernels"]
-    print(f"autotune: profile {label}: wall {wall_ms:.3f} ms under the profiler, "
-          f"device busy {busy:.3f} ms (copies {ms['copies']:.3f}, kernels "
-          f"{ms['kernels']:.3f}; {launches} device ops), idle share "
-          f"{1 - busy / wall_ms:.3f}")
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["cat"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        raise SystemExit(f"{path}: the profiler saw no device work")
+    busy_us, end = 0.0, float("-inf")
+    for a, b, _ in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    wall_ms, busy_ms = wall * 1e3, busy_us / 1e3
+    return result, dict(
+        wall_ms=wall_ms, busy_ms=busy_ms, n_ops=len(spans),
+        kernels_ms=sum(b - a for a, b, c in spans if c == "kernel") / 1e3,
+        copies_ms=sum(b - a for a, b, c in spans if c == "gpu_memcpy") / 1e3,
+        idle_share=1 - busy_ms / wall_ms), prof
+
+
+def idle_line(idle):
+    return (f"wall {idle['wall_ms']:.3f} ms under the profiler, device busy "
+            f"{idle['busy_ms']:.3f} ms (union over streams; kernels {idle['kernels_ms']:.3f}, "
+            f"copies {idle['copies_ms']:.3f}; {idle['n_ops']} device ops), "
+            f"idle share {idle['idle_share']:.3f}")
 
 
 def decode_device_us(torch, dev, randn, rmsnorm_cuda, F):
@@ -675,8 +1138,6 @@ def norm_threads_us(torch):
 def profile_main_path(torch, dev, build_model, cfg):
     """Device time by kernel for one full-width prefill (4 x 512) and one
     decode step, under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     model = build_model("yi-9b", device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     toks = torch.from_numpy(_prompts(cfg.vocab_size, (4, 512))).to(dev)
@@ -692,21 +1153,17 @@ def profile_main_path(torch, dev, build_model, cfg):
         torch.cuda.synchronize()
         for label, fn in (("prefill 4x512", lambda: model.prefill(params, {"tokens": toks})),
                           ("decode step", lambda: model.decode_step(params, nxt, cache, 513))):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
+            _, idle, prof = device_idle(
+                torch, fn, os.path.join(ROOT, "build", "chip_smoke",
+                                        f"profile_{label.split()[0]}.json"))
             kernels = [e for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA]
 
             def dev_us(e):
                 return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
 
-            busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-            print(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, device "
-                  f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-                  f"{sum(e.count for e in kernels)} kernel launches")
+            busy_ms = idle["busy_ms"]
+            print(f"profile {label}: {idle_line(idle)}")
             for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
                 print(f"  {dev_us(e) / 1e3:9.3f} ms {dev_us(e) / 1e3 / busy_ms:6.1%} "
                       f"x{e.count:<5d} {e.key[:90]}")

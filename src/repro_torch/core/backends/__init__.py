@@ -11,6 +11,10 @@ Built-ins:
   ``host-pipelined`` — depth-2 double-buffered pipeline: host-side
                        partition slicing, H2D on a copy stream, the
                        caching allocator's reuse of retired inputs
+  ``host-threads``   — thread-pool task issue with a bounded in-flight
+                       window, each pool thread on its own CUDA stream
+
+The JAX package's ``mesh`` train-step backend is not ported yet.
 
 Adding a backend::
 
@@ -25,10 +29,13 @@ Adding a backend::
 from __future__ import annotations
 
 from repro_torch.core.backends.base import (ExecutionContext, StreamBackend,
-                                            dispatch_plan, slice_rows,
+                                            dispatch_plan, new_stream,
+                                            release_stream, slice_rows,
                                             split_arrays, to_device)
 from repro_torch.core.backends.host_pipelined import PipelinedHostBackend
 from repro_torch.core.backends.host_sync import SyncHostBackend
+from repro_torch.core.backends.host_threads import (ThreadedHostBackend,
+                                                    WindowedPool)
 
 _BACKENDS: dict[str, StreamBackend] = {}
 
@@ -65,11 +72,12 @@ def list_backends(kind: str | None = None) -> list[str]:
 
 register_backend(SyncHostBackend())
 register_backend(PipelinedHostBackend())
+register_backend(ThreadedHostBackend())
 
 __all__ = [
     "ExecutionContext", "StreamBackend", "split_arrays", "to_device",
-    "dispatch_plan", "slice_rows",
-    "SyncHostBackend", "PipelinedHostBackend",
+    "dispatch_plan", "slice_rows", "new_stream", "release_stream", "WindowedPool",
+    "SyncHostBackend", "PipelinedHostBackend", "ThreadedHostBackend",
     "register_backend", "get_backend", "list_backends",
     "REFERENCE_BACKEND",
 ]

@@ -7,7 +7,8 @@ Three changes over the synchronous backend:
      exactly once.
   2. **Depth-``d`` in-flight window (double buffering at d=2).**  Task
      i+1's H2D copy is staged on a copy stream while task i's kernels run
-     on the compute (current) stream, which waits on the copy's event;
+     on the compute stream (the context's own), which waits on the copy's
+     event;
      the oldest task is retired (its event synchronized) before a new one
      is issued, so at most ``depth`` tasks' buffers are live instead of
      the whole dataset's.
@@ -45,7 +46,7 @@ class PipelinedHostBackend(StreamBackend):
         n_rows = next(iter(ctx.chunked.values())).shape[0]
         plans = dispatch_plan(n_rows, config)
         cuda = ctx.device.type == "cuda"
-        compute = torch.cuda.current_stream(ctx.device) if cuda else None
+        compute = ctx.stream
 
         staged: collections.deque = collections.deque()
         inflight: collections.deque = collections.deque()
@@ -74,8 +75,9 @@ class PipelinedHostBackend(StreamBackend):
                 for part in parts:
                     for t in part.values():
                         t.record_stream(compute)
-            task_outs = [ctx.kernel(part, ctx.shared_dev)  # async compute
-                         for part in parts]
+            with ctx.issuing():
+                task_outs = [ctx.kernel(part, ctx.shared_dev)  # async compute
+                             for part in parts]
             outs.extend(task_outs)
             done = None
             if cuda:

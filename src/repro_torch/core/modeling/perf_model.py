@@ -138,13 +138,14 @@ class PerformanceModel(EstimatorBase):
     def fork(self) -> "PerformanceModel":
         """A refit-isolated copy sharing the frozen feature pipeline.
 
-        ``refit`` rebinds ``mlp_params`` to new tensors (adam never
-        writes to the tensors it was given), so copying the layer
-        containers is enough: the fork and the original diverge from the
-        first refit on either side."""
-        return PerformanceModel(self.pipeline,
-                                [dict(layer) for layer in self.mlp_params],
-                                self.hidden)
+        The MLP's tensors are cloned, on the device they live on, so no
+        write to either model's weights — in place or by a refit — can
+        reach the other (per-tenant copy-on-refit in serving)."""
+        return PerformanceModel(
+            self.pipeline,
+            [{k: t.clone() for k, t in layer.items()}
+             for layer in self.mlp_params],
+            self.hidden)
 
     def to(self, device) -> "PerformanceModel":
         """This model with its MLP on ``device`` (a copy when it moves)."""

@@ -6,11 +6,13 @@ anything registered at runtime).  This module keeps the user-facing
 runner: one object per (workload, dataset) pair that can execute, time,
 and profile arbitrary stream configs on any registered runner backend.
 
-Times are host wall-clock seconds around work that ends in
-``torch.cuda.synchronize``, with every output read back to the host.
+Times are host wall-clock seconds around work that ends in a wait on
+the context's own stream, with every output read back to the host.  No
+wait here is device-wide: other requests' work on other streams goes on.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Union
 
@@ -18,16 +20,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.backends import (ExecutionContext, StreamBackend,
-                                       get_backend, to_device)
+                                       get_backend, new_stream,
+                                       release_stream,
+                                       to_device)
 from repro_torch.core.stream_config import SINGLE_STREAM, StreamConfig
 from repro_torch.core.workloads import Workload
-from repro_torch.device import resolve_device, synchronize
+from repro_torch.device import resolve_device
 
 
 def readback_outputs(outs: list) -> None:
     """Copy EVERY output to the host (paper Fig 8c: results transferred
     back), one ``.cpu()`` per slice, so D2H is inside every measured
-    runtime."""
+    runtime.  Each copy is issued on the calling thread's current stream
+    and waits for that stream only: callers read back under the
+    context's stream (``ctx.issuing()``)."""
     for o in outs:
         o.cpu()
 
@@ -62,16 +68,35 @@ class StreamedRunner:
 
     # -- execution -----------------------------------------------------------
 
-    def dispatch(self, config: StreamConfig) -> list:
-        """Issue the full iteration space under ``config``; returns the
-        per-slice outputs (possibly still in flight — callers block)."""
+    def issue(self, config: StreamConfig) -> list:
+        """Issue the full iteration space under ``config`` on the
+        context's own stream; returns the per-slice outputs, possibly
+        still in flight there.  Wait with ``self.ctx.wait()``, and read
+        them under ``self.ctx.issuing()``: the timed paths (``run``, the
+        serving execute stage) do exactly that."""
         return self.backend.dispatch(self.ctx, config)
+
+    def dispatch(self, config: StreamConfig) -> list:
+        """``issue``, with the outputs handed over to the calling thread's
+        current stream: that stream waits (on the device, the host does
+        not block) for the context's, and each output is marked as used
+        there, so the allocator does not recycle it under work the caller
+        queues on it.  For callers that read the outputs on a stream of
+        their own."""
+        outs = self.issue(config)
+        if self.ctx.stream is not None:
+            current = torch.cuda.current_stream(self.device)
+            if current != self.ctx.stream:
+                current.wait_stream(self.ctx.stream)
+                for o in outs:
+                    o.record_stream(current)
+        return outs
 
     def warmup(self, config: StreamConfig) -> None:
         """Run every sub-slice shape once before timing (allocator and
         library plans warm)."""
-        self.dispatch(config)
-        synchronize(self.device)
+        self.issue(config)
+        self.ctx.wait()
 
     def run(self, config: StreamConfig, *, reps: int = 3,
             warmed: bool = False) -> float:
@@ -81,10 +106,11 @@ class StreamedRunner:
         best = float("inf")
         for _ in range(reps):
             t0 = time.perf_counter()
-            outs = self.dispatch(config)
+            outs = self.issue(config)
             # read back (paper Fig 8c: results transferred to host)
-            synchronize(self.device)
-            readback_outputs(outs)
+            self.ctx.wait()
+            with self.ctx.issuing():
+                readback_outputs(outs)
             best = min(best, time.perf_counter() - t0)
         return best
 
@@ -98,21 +124,24 @@ class StreamedRunner:
         best = float("inf")
         for _ in range(reps):
             t0 = time.perf_counter()
-            to_device(self.ctx.chunked, self.device)
-            synchronize(self.device)
+            with self.ctx.issuing():
+                to_device(self.ctx.chunked, self.device)
+            self.ctx.wait()
             best = min(best, time.perf_counter() - t0)
         return best
 
     def measure_compute(self, *, reps: int = 3) -> float:
         """Seconds of the kernel on the whole chunked data, resident."""
-        dev = to_device(self.ctx.chunked, self.device)
-        synchronize(self.device)
+        with self.ctx.issuing():
+            dev = to_device(self.ctx.chunked, self.device)
+        self.ctx.wait()
         self.warmup(SINGLE_STREAM)
         best = float("inf")
         for _ in range(reps):
             t0 = time.perf_counter()
-            self.wl.kernel(dev, self.ctx.shared_dev)
-            synchronize(self.device)
+            with self.ctx.issuing():
+                self.wl.kernel(dev, self.ctx.shared_dev)
+            self.ctx.wait()
             best = min(best, time.perf_counter() - t0)
         return best
 
@@ -156,18 +185,41 @@ def parallel_capacity(calls, workers: int, *, reps: int = 8,
 def probe_host_capacity(workers: int, *, size: int = 384, reps: int = 6,
                         device="cuda") -> float:
     """Capacity probe with a synthetic kernel (one matmul on ``device``)
-    for callers that have no workload in hand yet.  Costs a few
-    milliseconds once."""
+    for callers that have no workload in hand yet — the concurrent
+    engine's lazy calibration path.  Costs a few milliseconds once.
+
+    Each calling thread issues on its own stream and waits for that
+    stream alone (its own output, as the JAX package blocks on its own
+    array), so the ratio measures how the host's issue scales with
+    threads, not threads queued behind one another's waits."""
     dev = resolve_device(device)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (size, size)).astype(np.float32)).to(dev)
+    if dev.type != "cuda":
+        def call() -> None:
+            x @ x
+        call()                                  # warm, untimed
+        return parallel_capacity([call], workers, reps=reps)
+    torch.cuda.current_stream(dev).synchronize()  # x, uploaded here
+    # one claimed stream for each thread that issues: the caller and the
+    # workers
+    streams = [new_stream(dev) for _ in range(workers + 1)]
+    free, local, lock = list(streams), threading.local(), threading.Lock()
 
     def call() -> None:
-        x @ x
-        synchronize(dev)
+        stream = getattr(local, "stream", None)
+        if stream is None:
+            with lock:
+                stream = local.stream = free.pop()
+        with torch.cuda.stream(stream):
+            x @ x
+        stream.synchronize()
 
-    call()                                      # warm, untimed
-    return parallel_capacity([call], workers, reps=reps)
+    try:
+        call()                                  # warm, untimed
+        return parallel_capacity([call], workers, reps=reps)
+    finally:
+        release_stream(*streams)
 
 
 def profile_config_grid(runner: StreamedRunner, configs, *, reps: int = 3,

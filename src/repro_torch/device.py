@@ -14,8 +14,3 @@ def resolve_device(device) -> torch.device:
             f"pass device='cpu' to run the plain PyTorch versions")
     return dev
 
-
-def synchronize(device: torch.device) -> None:
-    """Wait for all work queued on ``device``; the CPU has none queued."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)

@@ -41,6 +41,10 @@ from repro_torch.device import resolve_device
 DEFAULT_TRAIN_PROGRAMS = ("vecadd", "dotprod", "mvmult", "binomial",
                           "blackscholes", "jacobi-1d")
 
+#: the small corpus serving bootstraps from when no artifact exists yet:
+#: exactly the default adaptive-serving workloads
+BOOTSTRAP_PROGRAMS = ("vecadd", "dotprod", "mvmult")
+
 TRAINERS = {
     "mlp": PerformanceModel,
     "cart": TreeRegressor,
@@ -126,6 +130,23 @@ def train_and_publish(
               + (f", loo_frac_of_oracle={frac:.3f}" if frac else "")
               + ")", file=sys.stderr, flush=True)
     return summary
+
+
+def bootstrap_artifact(registry: ModelRegistry, *, verbose: bool = True,
+                       epochs: int = 400, device="cuda") -> str:
+    """Train-and-publish a minimal artifact on ``device`` when the
+    registry is empty — the zero-to-serving path.  Uses the default
+    adaptive-serving workloads at two dataset scales each; the profile
+    cache makes every run after the first take seconds, not minutes."""
+    if verbose:
+        print("model registry is empty — bootstrapping a trained "
+              "artifact (profiling the bootstrap corpus; cached for "
+              "next time)...", file=sys.stderr, flush=True)
+    summary = train_and_publish(
+        BOOTSTRAP_PROGRAMS, kind="mlp", datasets_per_program=2, reps=1,
+        epochs=epochs, registry=registry, tag="bootstrap",
+        run_cv=True, verbose=verbose, device=device)
+    return summary["artifact_id"]
 
 
 def main() -> None:
