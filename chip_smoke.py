@@ -40,8 +40,34 @@ On one NVIDIA card (written for an H100) it
    point with its trace and metrics files; prints requests/s, latency,
    stage times, hit rate, configs, the capacity probe, the pinning cost
    and the device's idle share;
-7. prints an ``{"autotune": {...}}`` line, a ``{"serving": {...}}`` line,
-   a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+7. scores the paper's baselines on the autotune phase's 12-cell corpus
+   (no new profiling): Liu et al. and Werkhoven et al. from each cell's
+   features, the k-NN classifier (k=3) under leave-one-program-out, beside
+   the MLP's LOO and the heuristic; every pick must be a valid config;
+8. serves the JAX package's real-trace configuration: 2,000 requests of
+   ``generate_trace`` (Poisson; vecadd, dotprod, mvmult at dataset index
+   4), through the concurrent engine at window 4 on ``host-sync`` with the
+   autotune phase's artifact, drift off; prints requests/s, latency, hit
+   rate, stage seconds and the coordinator's share of the wall, and holds
+   the first request of every bucket against the CPU;
+9. serves ``BENCH_fleet.json``'s configuration through the fleet router
+   (``fleet_serve``'s path: 24 requests, 8 tenants, window 2,
+   ``host-sync``, 3 reps) at 1, 2 and 4 worker processes, each with its
+   own CUDA context on the card; prints cold and warm requests/s, the
+   per-worker breakdown, ``ipc_overhead_fraction``, spawn seconds and
+   each worker's device memory; runs the SIGKILL drill at 2 workers;
+   serves two long warm windows (1,200 requests each, 6 in every task
+   message, drift off) at 1, 2 and 4 workers and at 1 and 4 workers
+   spawned with one intra-op thread each, and prints requests/s and each
+   worker's engine time per request; holds the first request of every
+   (workload, tenant) bucket, as each worker served it, against the CPU;
+   times one message of 2, 12 and 46 MB through a pipe; and renders the
+   merged telemetry and metrics of ``fleet_serve`` with
+   ``launch/stats.py``;
+10. prints an ``{"autotune": {...}}`` line, a ``{"serving": {...}}``
+   line, ``{"baselines": ...}``, ``{"real_trace": ...}`` and
+   ``{"fleet": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
+   ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero.  Without CUDA, or without this
 checkout's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -61,6 +87,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # bf16 tensor-core operations/s.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
+
+# the autotune phase's profile cache: the 12-cell card corpus the baselines
+# phase reads back
+CORPUS_CACHE = os.path.join(ROOT, "build", "chip_smoke", "profile_cache_cuda.json")
 
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # workloads and backends, card against the reference: the backend tolerance
@@ -406,10 +436,22 @@ def main() -> int:
     # -- 6. adaptive serving ---------------------------------------------------
     serving = serving_phase(torch, dev, autotune["artifact_id"])
 
-    # -- 7. result -------------------------------------------------------------
+    # -- 7. the paper's baselines on the card corpus ---------------------------
+    baselines = baselines_phase(dev, autotune)
+
+    # -- 8. the real trace -----------------------------------------------------
+    real_trace = real_trace_phase(torch, dev, autotune["artifact_id"])
+
+    # -- 9. the fleet ----------------------------------------------------------
+    fleet = fleet_phase(torch, autotune["artifact_id"])
+
+    # -- 10. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"autotune": autotune}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"baselines": baselines}))
+    print(json.dumps({"real_trace": real_trace}))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -516,7 +558,7 @@ def autotune_phase(torch, dev):
         print(f"autotune: profile {label} {c.as_tuple()}: {idle_line(idle)}")
 
     print("autotune: train_model on the card (profile, LOO, train, publish)")
-    cache = os.path.join(ROOT, "build", "chip_smoke", "profile_cache_cuda.json")
+    cache = CORPUS_CACHE
     if os.path.exists(cache):
         os.remove(cache)
 
@@ -856,6 +898,604 @@ def serving_phase(torch, dev, artifact_id):
     return out
 
 
+def baselines_phase(dev, autotune):
+    """The paper's baselines on the autotune phase's 12-cell card corpus,
+    read back from its profile cache (nothing is profiled again): Liu et
+    al. and Werkhoven et al. from each cell's measured features (paper
+    §5.2, Fig. 12), and the k-NN classifier (k=3) under leave-one-program-
+    out (§6.4, Fig. 14).  A pick off the profiled grid is scored at its
+    nearest profiled config (``achieved_speedup``).  The MLP's LOO and the
+    heuristic come from the autotune phase.  Every pick must be a valid
+    ``StreamConfig``; nothing is gated on quality."""
+    import numpy as np
+
+    from repro_torch.core.analytical import (liu_config, probe_from_features,
+                                             werkhoven_config)
+    from repro_torch.core.features import RAW_FEATURE_NAMES
+    from repro_torch.core.modeling import KNNClassifier
+    from repro_torch.core.modeling import dataset as ds
+    from repro_torch.core.modeling.evaluate import achieved_speedup, geomean
+    from repro_torch.core.stream_config import StreamConfig
+    from repro_torch.launch.train_model import DEFAULT_TRAIN_PROGRAMS
+
+    samples = ds.generate(DEFAULT_TRAIN_PROGRAMS, datasets_per_program=2,
+                          cache_path=CORPUS_CACHE, verbose=False, device=dev)
+    if len(samples) != 12:
+        raise SystemExit(f"baselines: corpus has {len(samples)} cells, expected 12")
+    oracle = geomean(s.oracle_speedup for s in samples)
+    picks = {"liu": [], "werkhoven": [], "knn_loo": []}
+    for s in samples:
+        probe = probe_from_features(dict(zip(RAW_FEATURE_NAMES, s.features)))
+        picks["liu"].append((s, liu_config(probe)))
+        picks["werkhoven"].append((s, werkhoven_config(probe)))
+    for prog in sorted({s.program for s in samples}):
+        train, test = ds.loo_split(samples, prog)
+        clf = KNNClassifier.train(np.stack([s.features for s in train]),
+                                  [s.best_config for s in train], k=3)
+        picks["knn_loo"] += [(s, clf.predict(s.features)) for s in test]
+    out = {"oracle": oracle}
+    print(f"baselines: 12 cells, geomean oracle {oracle:.4f}")
+    for name, pairs in picks.items():
+        for s, c in pairs:
+            if not (isinstance(c, StreamConfig) and isinstance(c.partitions, int)
+                    and isinstance(c.tasks, int) and c.partitions >= 1 and c.tasks >= 1):
+                raise SystemExit(f"baselines: {name} picked {c!r} for {s.program}@{s.scale}")
+        ach = geomean(achieved_speedup(s, c) for s, c in pairs)
+        off_grid = sum(c.as_tuple() not in s.times for s, c in pairs)
+        out[name] = dict(geomean_achieved=ach, frac_of_oracle=ach / oracle,
+                         off_grid=off_grid,
+                         picks={f"{s.program}@{s.scale}": list(c.as_tuple())
+                                for s, c in pairs})
+        print(f"  {name:10s} geomean achieved {ach:.4f}, frac_of_oracle "
+              f"{ach / oracle:.4f}; {off_grid} of 12 picks off the profiled grid; "
+              f"picks {out[name]['picks']}")
+    loo = autotune["loo"]
+    heur = autotune["heuristic_mean"]
+    out["mlp_loo"] = dict(geomean_achieved=loo["mean_achieved"],
+                          frac_of_oracle=loo["frac_of_oracle"])
+    out["heuristic"] = dict(geomean_achieved=heur, frac_of_oracle=heur / oracle)
+    print(f"  {'mlp_loo':10s} geomean achieved {loo['mean_achieved']:.4f}, "
+          f"frac_of_oracle {loo['frac_of_oracle']:.4f} (autotune phase)")
+    print(f"  {'heuristic':10s} geomean achieved {heur:.4f}, frac_of_oracle "
+          f"{heur / oracle:.4f} (autotune phase)")
+    return out
+
+
+REAL_TRACE_PROGRAMS = ("vecadd", "dotprod", "mvmult")
+
+
+def real_trace_phase(torch, dev, artifact_id):
+    """The JAX package's real-trace configuration (``benchmarks/run.py``
+    ``serve_real_trace``) on the card: 2,000 requests of
+    ``generate_trace`` (seed 0, Poisson, the three programs at dataset
+    index 4, no churn, no SLOs), arrival stamps cleared so the engine
+    stamps them at submit, served by the ``ConcurrentScheduler`` at window
+    4 (4 workers) on ``host-sync`` with the autotune phase's artifact and
+    drift off.  The first request of every bucket keeps its outputs and is
+    held against the CPU within its workload tolerance."""
+    import numpy as np
+
+    from repro_torch.core.stream_config import SINGLE_STREAM
+    from repro_torch.core.streams import StreamedRunner
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.launch.serve import resolve_serving_model
+    from repro_torch.serving import (ConcurrentScheduler, DriftDetector,
+                                     HotPathProfiler, MetricsRegistry,
+                                     TelemetryLog, Tracer)
+    from repro_torch.serving.traces import TraceConfig, generate_trace
+
+    t_phase = time.perf_counter()
+    model, info = resolve_serving_model(artifact_id, os.path.join(ROOT, "build", "models"),
+                                        device=dev, verbose=False)
+    cfg = TraceConfig(n_requests=2000, seed=0, arrival="poisson",
+                      workloads=REAL_TRACE_PROGRAMS, scale_indices=(4,),
+                      churn_prob=0.0, slo_choices=None)
+    t0 = time.perf_counter()
+    reqs = list(generate_trace(cfg))
+    for r in reqs:
+        r.arrival_s = None
+    gen_s = time.perf_counter() - t0
+    cells = sorted({f"{r.workload}@{next(iter(r.chunked.values())).shape[0]}" for r in reqs})
+    mb = sum(a.nbytes for r in reqs for d in (r.chunked, r.shared) for a in d.values()) / 1e6
+    print(f"real trace: {len(reqs)} requests over {cells}, {mb:.1f} MB of inputs "
+          f"in all, generated in {gen_s:.2f} s; model {info['artifact_id']}")
+
+    kept = {}
+
+    class FirstOfBucket(ConcurrentScheduler):
+        """Keeps the outputs of each bucket's first retired request."""
+
+        def _retire(self, pending, outs, measured_s):
+            if pending.key not in kept:
+                kept[pending.key] = (pending.req, list(outs))
+            return super()._retire(pending, outs, measured_s)
+
+    tracer, metrics = Tracer(), MetricsRegistry()
+    with FirstOfBucket(model, window=4, workers=4, device=dev, backend="host-sync",
+                       drift=DriftDetector(threshold=1e9), telemetry=TelemetryLog(),
+                       model_tag=info["artifact_id"], keep_outputs=False,
+                       tracer=tracer, metrics=metrics) as sched:
+        sched.submit_all(reqs)
+        prof = HotPathProfiler(tracer)
+        with prof:
+            results = sched.run()
+        report = prof.report()
+        summary = sched.telemetry.summary()
+        stats = dict(sched.stats)
+    torch.cuda.synchronize()
+    bad = [r.status for r in results if r.status not in ("served", "degraded")]
+    if len(results) != len(reqs) or bad:
+        raise SystemExit(f"real trace: {len(results)} results, not served: {bad[:5]}")
+    if len(kept) != len(REAL_TRACE_PROGRAMS):
+        raise SystemExit(f"real trace: {len(kept)} buckets, expected {len(REAL_TRACE_PROGRAMS)}")
+    checked = {}
+    for key, (req, outs) in sorted(kept.items()):
+        wl = get_workload(req.workload)
+        want = torch.cat(StreamedRunner(wl, req.chunked, req.shared, device="cpu")
+                         .dispatch(SINGLE_STREAM)).numpy()
+        got = torch.cat([o.cpu() for o in outs]).numpy()
+        rtol, atol = WL_TOL.get(req.workload, (WL_RTOL, WL_ATOL))
+        tol = atol + rtol * np.abs(want)
+        if got.shape != want.shape or not (np.abs(got - want) <= tol).all():
+            raise SystemExit(f"real trace: first {req.workload} request differs from the "
+                             f"CPU: max abs err {np.abs(got - want).max():.3e}")
+        checked[req.workload] = float((np.abs(got - want) / tol).max())
+    wall = report["wall_s"]
+    stages = report["stages"]
+    coord_s = stages["decide"]["wall_s"] + stages["retire"]["wall_s"]
+    lat = summary["latency"]
+    configs = {}
+    for r in results:
+        configs.setdefault(r.request.workload, "x".join(map(str, r.config.as_tuple())))
+    out = dict(requests=len(results), wall_s=wall, rps=len(results) / wall,
+               p50_ms=lat["p50_s"] * 1e3, p99_ms=lat["p99_s"] * 1e3,
+               hit_rate=summary["hit_rate"], cold_misses=stats.get("cold_misses", 0),
+               stage_s={k: v["wall_s"] for k, v in stages.items()},
+               kernel_exec_s=sum(r.measured_s for r in results),
+               decide_retire_share=coord_s / wall, configs=configs,
+               first_of_bucket_err_over_tol=checked)
+    print(f"real trace: window 4 host-sync: {len(results)} requests in {wall:.3f} s = "
+          f"{out['rps']:.1f} requests/s; latency p50 {out['p50_ms']:.2f} ms, p99 "
+          f"{out['p99_ms']:.2f} ms; hit rate {out['hit_rate']:.4f}, cold misses "
+          f"{out['cold_misses']}; stages " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in out["stage_s"].items())
+          + f"; measured {out['kernel_exec_s']:.3f} s; decide+retire {coord_s:.3f} s = "
+          f"{out['decide_retire_share']:.4f} of the wall; configs {configs}")
+    print(f"real trace: first request of each bucket against the CPU, worst err/tol "
+          f"{checked} ok")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"real trace: phase {out['phase_s']:.1f} s")
+    return out
+
+
+FLEET_PROGRAMS = ("vecadd", "dotprod", "mvmult")
+# where each checked fleet worker writes its output checks (one file per pid)
+FLEET_CHECKS = os.path.join(ROOT, "build", "chip_smoke", "fleet", "checks")
+# the long warm windows, each in a router of its own: 50 copies of the 24
+# requests (every bucket warm), 6 requests in every task message at every N,
+# 2 windows a router
+FLEET_LONG_COPIES, FLEET_LONG_CHUNK, FLEET_LONG_WINDOWS = 50, 6, 2
+
+
+def checked_worker_main(cfg, task_q, conn):
+    """The fleet's ``worker_main`` with a scheduler that keeps the outputs of
+    the first request of each (workload, tenant) it serves.  When the worker
+    stops, it holds them against the port on the CPU within the workload
+    tolerance and writes the err/tol of each to ``FLEET_CHECKS/<pid>.json``;
+    only numbers cross back, as the fleet's wire carries no outputs.  A
+    spawned worker finds this function in the script it re-imports."""
+    import numpy as np
+    import torch
+
+    import repro_torch.serving as serving
+    from repro_torch.core.stream_config import SINGLE_STREAM
+    from repro_torch.core.streams import StreamedRunner
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.serving.fleet.worker import worker_main
+
+    kept = {}
+
+    class FirstOfBucket(serving.ConcurrentScheduler):
+        def _retire(self, pending, outs, measured_s):
+            kept.setdefault((pending.req.workload, pending.req.tenant),
+                            (pending.req, list(outs)))
+            return super()._retire(pending, outs, measured_s)
+
+    serving.ConcurrentScheduler = FirstOfBucket     # _build_scheduler's class
+    try:
+        worker_main(cfg, task_q, conn)
+    finally:
+        if cfg.device.startswith("cuda"):
+            torch.cuda.synchronize()
+        checks = {}
+        for (workload, tenant), (req, outs) in sorted(kept.items()):
+            want = torch.cat(StreamedRunner(get_workload(workload), req.chunked, req.shared,
+                                            device="cpu").dispatch(SINGLE_STREAM)).numpy()
+            got = torch.cat([o.cpu() for o in outs]).numpy()
+            rtol, atol = WL_TOL.get(workload, (WL_RTOL, WL_ATOL))
+            checks[f"{workload}/{tenant}"] = (
+                float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+                if got.shape == want.shape else float("inf"))
+        os.makedirs(FLEET_CHECKS, exist_ok=True)
+        with open(os.path.join(FLEET_CHECKS, f"{os.getpid()}.json"), "w") as f:
+            json.dump({"worker": cfg.label, "threads": torch.get_num_threads(),
+                       "checks": checks}, f)
+
+
+def pipe_probe():
+    """Seconds to move one message of 2, 12 and 46 MB (one request, a
+    6-request and a 24-request task message of the fleet) through a
+    ``multiprocessing`` pipe, sent by ``send_bytes`` from a thread: received
+    by ``recv_bytes``, as a worker's task queue does, and by ``os.readv``
+    into one buffer allocated up front.  Best of 3, within one process."""
+    import struct
+    import threading
+    from multiprocessing import Pipe
+
+    out = {}
+    for mb in (2, 12, 46):
+        payload = bytes(mb * 10**6)
+        row = {}
+        for how in ("recv_bytes", "readv"):
+            best = float("inf")
+            for _ in range(3):
+                r, w = Pipe(duplex=False)
+                sender = threading.Thread(target=w.send_bytes, args=(payload,))
+                t0 = time.perf_counter()
+                sender.start()
+                if how == "recv_bytes":
+                    got = len(r.recv_bytes())
+                else:
+                    fd, head = r.fileno(), b""
+                    while len(head) < 4:
+                        head += os.read(fd, 4 - len(head))
+                    view = memoryview(bytearray(struct.unpack("!i", head)[0]))
+                    got = 0
+                    while got < len(view):
+                        got += os.readv(fd, [view[got:]])
+                best = min(best, time.perf_counter() - t0)
+                sender.join()
+                r.close()
+                w.close()
+                if got != len(payload):
+                    raise SystemExit(f"pipe probe: {got} bytes of {len(payload)}")
+            row[how] = best
+        out[f"{mb}MB"] = row
+    return out
+
+
+def fleet_phase(torch, artifact_id):
+    """``BENCH_fleet.json``'s configuration on the card, through the fleet
+    router: the three programs at dataset index 4, 24 requests over 8
+    tenants, window 2 per worker on ``host-sync``, the autotune phase's
+    artifact pinned by id; at 1, 2 and 4 worker processes, each its own
+    CUDA context, 3 reps in one router (rep 1 cold, reps 2-3 warm), and
+    the SIGKILL drill at 2 workers.  Then, in routers of their own with
+    drift off, two long warm windows at 1, 2 and 4 workers, and at 1 and
+    4 workers spawned with one intra-op thread; and ``fleet_serve`` at 2
+    workers with its telemetry and metrics files rendered by the stats
+    CLI.  Every request
+    must be served by the worker its tenant hashes to; the first request
+    of every (workload, tenant) bucket, as its worker served it, must
+    agree with the CPU within its workload tolerance; the drill must show
+    one death, one respawn and requeued work, and no worker process may
+    be left."""
+    import dataclasses
+    import glob
+    import multiprocessing
+    import pickle
+    import shutil
+    from multiprocessing.reduction import ForkingPickler
+    from unittest import mock
+
+    import repro_torch.serving.fleet.router as router_mod
+    from repro_torch.launch.serve import fleet_serve
+    from repro_torch.launch.stats import read_telemetry, render
+    from repro_torch.serving import (FleetRouter, WorkerConfig, latency_stats,
+                                     make_trace, shard_for)
+
+    t_phase = time.perf_counter()
+    n_requests, tenants, reps = 24, 8, 3
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    mps = subprocess.run(["pgrep", "-f", "nvidia-cuda-mps"], capture_output=True,
+                         text=True).stdout.split()
+    print(f"fleet: compute mode {mode!r}; MPS control daemon "
+          f"{'running (pids ' + ' '.join(mps) + ')' if mps else 'not running'}: "
+          f"the workers' contexts time-slice the SMs")
+    cfg = WorkerConfig(window=2, backend="host-sync", model=artifact_id,
+                       model_dir=os.path.join(ROOT, "build", "models"), device="cuda")
+
+    def trace():
+        return make_trace(list(FLEET_PROGRAMS), occurrences=-(-n_requests // 3),
+                          tenants=tenants, scale_index=4)[:n_requests]
+
+    def gate(label, results, n, expected=n_requests):
+        if len(results) != expected:
+            raise SystemExit(f"fleet {label}: {len(results)} results of {expected}")
+        for r in results:
+            worker = r["sample"].get("worker")
+            if r["status"] not in ("served", "degraded"):
+                raise SystemExit(f"fleet {label}: {r['tenant']} {r['workload']} "
+                                 f"{r['status']}: {r['error']}")
+            if worker != f"w{shard_for(r['tenant'], n)}":
+                raise SystemExit(f"fleet {label}: {r['tenant']} served by {worker}, "
+                                 f"shard w{shard_for(r['tenant'], n)}")
+
+    def children():
+        return [p for p in multiprocessing.active_children() if p.name.startswith("fleet-")]
+
+    def long_window(router, n):
+        """One long warm window: FLEET_LONG_COPIES copies of the 24 requests
+        in one run; per worker, engine time and measured dispatch time per
+        request, and requests per task message and per result frame (one
+        engine run, split at the worker's frame_max)."""
+        reqs = [dataclasses.replace(r, seq=-1, trace_id=None, arrival_s=None)
+                for r in trace() for _ in range(FLEET_LONG_COPIES)]
+        before = dict(router.stats)
+        router.submit_all(reqs)
+        t0 = time.perf_counter()
+        results = router.run()
+        wall = time.perf_counter() - t0
+        gate(f"N={n} long window", results, n, expected=len(reqs))
+        frames = {k: router.stats[k] - before.get(k, 0)
+                  for k in ("dispatch_frames", "result_frames")}
+        by_worker = {}
+        for r in results:
+            by_worker.setdefault(r["sample"]["worker"], []).append(r)
+        workers = {}
+        for label, rs in sorted(by_worker.items()):
+            busy = router.last_run["worker_busy_s"].get(label, 0.0)
+            workers[label] = dict(requests=len(rs), engine_busy_s=busy,
+                                  engine_ms_per_request=busy / len(rs) * 1e3,
+                                  measured_ms_per_request=sum(r["measured_s"] for r in rs)
+                                  / len(rs) * 1e3,
+                                  refinements=sum(bool(r["refined"]) for r in rs))
+        row = dict(requests=len(results), wall_s=wall, rps=len(results) / wall,
+                   ipc_overhead_fraction=router.last_run["ipc_overhead_fraction"],
+                   requests_per_task_message=len(results) / frames["dispatch_frames"],
+                   requests_per_result_frame=len(results) / frames["result_frames"],
+                   workers=workers)
+        print(f"  long warm window: {len(results)} requests in {wall:.3f} s = "
+              f"{row['rps']:.1f} requests/s; {row['requests_per_task_message']:.2f} requests per "
+              f"task message, {row['requests_per_result_frame']:.2f} per result frame; "
+              f"ipc_overhead_fraction {row['ipc_overhead_fraction']:.3f}; " + "; ".join(
+                  f"{k}: {w['requests']} requests, engine {w['engine_ms_per_request']:.3f} ms "
+                  f"and measured {w['measured_ms_per_request']:.3f} ms per request, "
+                  f"{w['refinements']} refinements" for k, w in workers.items()))
+        return row
+
+    def read_checks(label):
+        """The checks the router's workers wrote on their way out: every
+        bucket checked, each within its tolerance."""
+        checked, threads = {}, set()
+        for path in glob.glob(os.path.join(FLEET_CHECKS, "*.json")):
+            with open(path) as f:
+                got = json.load(f)
+            checked.update(got["checks"])
+            threads.add(got["threads"])
+            os.remove(path)
+        worst = max(checked.values(), default=float("inf"))
+        if set(checked) != buckets or not worst <= 1.0:
+            raise SystemExit(f"fleet {label}: worker outputs against the CPU: "
+                             f"{len(checked)} of {len(buckets)} buckets checked, "
+                             f"worst err/tol {worst:.3e}")
+        print(f"fleet: {label}: the first request of each of the {len(buckets)} (workload, "
+              f"tenant) buckets, as its worker served it, against the CPU: worst err/tol "
+              f"{worst:.4f} ok; intra-op threads per worker {sorted(threads)}")
+        return dict(worst_err_over_tol=worst, worker_threads=sorted(threads))
+
+    def long_router(n, threads=None):
+        """FLEET_LONG_WINDOWS long warm windows in a router of their own:
+        FLEET_LONG_CHUNK requests in every task message at every N, drift
+        off (threshold 1e9, as the real trace runs: a refinement re-profiles
+        for ~0.4 s and would time the refiner, not the serving), workers
+        spawned with ``OMP_NUM_THREADS=threads`` when given; one cold rep
+        first warms every bucket."""
+        label = f"N={n}, {f'{threads} intra-op thread' if threads else 'default threads'}"
+        router = FleetRouter(n, worker=dataclasses.replace(cfg, drift_threshold=1e9),
+                             dispatch_chunk=FLEET_LONG_CHUNK)
+        try:
+            with mock.patch.dict(os.environ, {"OMP_NUM_THREADS": str(threads)} if threads else {}):
+                router.start()
+            pids.update(slot.pid for slot in router._slots)
+            router.submit_all(trace())
+            gate(f"{label}, rep 1", router.run(), n)
+            print(f"fleet: long warm windows, {label}, drift off:")
+            rows = [long_window(router, n) for _ in range(FLEET_LONG_WINDOWS)]
+        finally:
+            router.close()
+        out = dict(windows=rows, rps=sum(r["requests"] for r in rows) / sum(r["wall_s"] for r in rows),
+                   engine_ms_per_request=sum(w["engine_busy_s"] for r in rows
+                                             for w in r["workers"].values())
+                   / sum(r["requests"] for r in rows) * 1e3)
+        out.update(read_checks(label))
+        return out
+
+    def drill(router, n):
+        """SIGKILL the worker of tenant-0 once a quarter of a rep has
+        retired, then serve one more rep: a worker that dies with work in
+        flight is respawned within the run, one that had already answered
+        all of its share at the next run's collect; either way its un-acked
+        work is requeued."""
+        victim = shard_for("tenant-0", n)
+        base = dict(router.stats)
+        router.submit_all(trace())
+        router.inject_kill(victim, after_results=n_requests // 4)
+        results = router.run()
+        gate("SIGKILL drill", results, n)
+        in_run = router.stats.get("worker_deaths", 0) - base.get("worker_deaths", 0)
+        router.submit_all(trace())
+        results = router.run()
+        gate("SIGKILL drill, next rep", results, n)
+        out = {k: router.stats.get(k, 0) - base.get(k, 0)
+               for k in ("injected_kills", "worker_deaths", "worker_respawns",
+                         "requeued_requests", "duplicate_results")}
+        out["victim"] = f"w{victim}"
+        out["death_seen_in_the_killed_run"] = bool(in_run)
+        print(f"fleet: SIGKILL drill at N=2: {out}; every request of both reps "
+              f"terminal and served by its shard")
+        if out["worker_deaths"] != 1 or out["worker_respawns"] != 1 or out["requeued_requests"] < 1:
+            raise SystemExit(f"fleet SIGKILL drill failed: {out}")
+        return out
+
+    out = {"compute_mode": mode, "mps": bool(mps)}
+    # what the router's queue feeder and a worker do to one rep's requests
+    # at N=1 (one task message), without the pipe: best of 3
+    batch = [(f"r{i:06d}", r) for i, r in enumerate(trace())]
+    dumps_s = loads_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        blob = ForkingPickler.dumps(("serve", batch))
+        dumps_s = min(dumps_s, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        pickle.loads(blob)
+        loads_s = min(loads_s, time.perf_counter() - t0)
+    out["pickle"] = dict(mb=len(blob) / 1e6, dumps_s=dumps_s, loads_s=loads_s)
+    print(f"fleet: one rep's {n_requests} requests as one task message: "
+          f"{len(blob) / 1e6:.1f} MB, pickled in {dumps_s * 1e3:.1f} ms, unpickled in "
+          f"{loads_s * 1e3:.1f} ms (in this process, no pipe)")
+    del batch, blob
+    probe = pipe_probe()
+    out["pipe_probe"] = probe
+    print("fleet: one message through a pipe (send_bytes in a thread, best of 3): "
+          + "; ".join(f"{k} recv_bytes {v['recv_bytes'] * 1e3:.1f} ms, readv into one buffer "
+                      f"{v['readv'] * 1e3:.1f} ms" for k, v in probe.items()))
+    shutil.rmtree(FLEET_CHECKS, ignore_errors=True)
+    buckets = {f"{w}/{t}" for w in FLEET_PROGRAMS for t in (f"tenant-{i}" for i in range(tenants))}
+    pids = set()
+    # every worker of the measured routers is the checked worker: the first
+    # request of each (workload, tenant) it serves is held against the CPU
+    with mock.patch.object(router_mod, "worker_main", checked_worker_main):
+        for n in (1, 2, 4):
+            free0 = torch.cuda.mem_get_info()[0]
+            t0 = time.perf_counter()
+            router = FleetRouter(n, worker=cfg)
+            try:
+                router.start()
+                spawn_s = time.perf_counter() - t0
+                # device memory the workers' contexts took, from the card's
+                # free memory (nvidia-smi lists no process inside a container)
+                used_mb = (free0 - torch.cuda.mem_get_info()[0]) / 2**20
+                pids.update(slot.pid for slot in router._slots)
+                rows, lats = [], []
+                for rep in range(reps):
+                    router.submit_all(trace())
+                    t0 = time.perf_counter()
+                    results = router.run()
+                    t_end = time.perf_counter()
+                    wall = t_end - t0
+                    gate(f"N={n} rep {rep + 1}", results, n)
+                    lats += [r["sample"]["latency_s"] for r in results]
+                    # where the run's wall goes, on the one monotonic clock the
+                    # router and its workers share: until the first request is
+                    # decided in a worker, while workers decide and retire, and
+                    # after the last retire until run() returns
+                    first = min(r["sample"]["t_decide_s"] for r in results)
+                    last = max(r["sample"]["t_retire_s"] for r in results)
+                    rows.append(dict(wall_s=wall, rps=n_requests / wall,
+                                     ipc_overhead_fraction=router.last_run["ipc_overhead_fraction"],
+                                     worker_busy_s=router.last_run["worker_busy_s"],
+                                     to_first_decide_s=first - t0, in_workers_s=last - first,
+                                     after_last_retire_s=t_end - last,
+                                     refinements=sum(bool(r["refined"]) for r in results)))
+                per_worker = router.summary()["per_worker"]
+                lstats = latency_stats(lats)
+                warm = max(rows[1:], key=lambda r: r["rps"])
+                out[f"n{n}"] = dict(spawn_s=spawn_s, device_mib_per_worker=used_mb / n,
+                                    reps=rows,
+                                    cold_rps=rows[0]["rps"], warm_rps=warm["rps"],
+                                    warm_ipc_overhead_fraction=warm["ipc_overhead_fraction"],
+                                    p50_ms=lstats["p50_s"] * 1e3, p99_ms=lstats["p99_s"] * 1e3,
+                                    per_worker=per_worker)
+                print(f"fleet: N={n}: spawned and ready in {spawn_s:.2f} s; device memory "
+                      f"{used_mb:.0f} MiB for all {n} workers ({used_mb / n:.0f} per worker); "
+                      f"cold {rows[0]['rps']:.1f} requests/s, warm "
+                      + ", ".join(f"{r['rps']:.1f}" for r in rows[1:])
+                      + " requests/s; ipc_overhead_fraction "
+                      + ", ".join(f"{r['ipc_overhead_fraction']:.3f}" for r in rows)
+                      + f"; latency p50 {out[f'n{n}']['p50_ms']:.2f} ms, p99 "
+                      f"{out[f'n{n}']['p99_ms']:.2f} ms")
+                print("  wall by rep: " + "; ".join(
+                    f"{r['wall_s'] * 1e3:.1f} ms = {r['to_first_decide_s'] * 1e3:.1f} to the "
+                    f"first decide + {r['in_workers_s'] * 1e3:.1f} in workers + "
+                    f"{r['after_last_retire_s'] * 1e3:.1f} after the last retire, "
+                    f"{r['refinements']} refinements" for r in rows))
+                for label, w in per_worker.items():
+                    busy = [r["worker_busy_s"].get(label, 0.0) for r in rows]
+                    print(f"  {label}: {w['requests']} requests, {w['cache_hits']} hits, "
+                          f"{w['refinements']} refinements, {w['failed']} failed; engine busy "
+                          + ", ".join(f"{b * 1e3:.2f}" for b in busy) + " ms by rep")
+                if n == 2:
+                    out["drill"] = drill(router, n)
+                    pids.update(slot.pid for slot in router._slots)
+            finally:
+                router.close()
+            out[f"n{n}"].update(read_checks(f"N={n}"))
+        # the long windows, with torch's default intra-op pool in every
+        # worker and with one thread (four processes of the host's full
+        # thread count each share its cores); N=1 and N=4 side by side
+        long = {f"n{n}{'_one_thread' if t else ''}": long_router(n, t)
+                for n in (1, 4) for t in (None, 1)}
+        long["n2"] = long_router(2)
+    out["long"] = long
+    out["speedup_warm"] = {f"n{n}": out[f"n{n}"]["warm_rps"] / out["n1"]["warm_rps"]
+                           for n in (2, 4)}
+    out["speedup_long"] = {k: long[k]["rps"] / long["n1_one_thread" if "one" in k else "n1"]["rps"]
+                           for k in ("n2", "n4", "n4_one_thread")}
+    print(f"fleet: warm requests/s over N=1: N=2 {out['speedup_warm']['n2']:.3f}x, "
+          f"N=4 {out['speedup_warm']['n4']:.3f}x (24-request reps); long windows, drift "
+          f"off: N=2 {out['speedup_long']['n2']:.3f}x, N=4 {out['speedup_long']['n4']:.3f}x; "
+          f"one intra-op thread a worker, N=4 {out['speedup_long']['n4_one_thread']:.3f}x; "
+          "engine ms per request " + ", ".join(
+              f"{k} {v['engine_ms_per_request']:.3f}" for k, v in long.items()))
+
+    # the user's entry point, with its telemetry and metrics files, and the
+    # stats CLI's rendering of them
+    work = os.path.join(ROOT, "build", "chip_smoke", "fleet")
+    os.makedirs(work, exist_ok=True)
+    tele, met = os.path.join(work, "telemetry.jsonl"), os.path.join(work, "metrics.json")
+    for path in (tele, met):
+        if os.path.exists(path):
+            os.remove(path)
+    summary = fleet_serve(FLEET_PROGRAMS, n_requests=n_requests, worker_procs=2, window=2,
+                          tenants=tenants, model=artifact_id,
+                          model_dir=os.path.join(ROOT, "build", "models"),
+                          telemetry_path=tele, metrics_out=met, verbose=False,
+                          device="cuda")
+    samples = read_telemetry(tele)
+    with open(met) as f:
+        metrics = json.load(f)
+    if (summary["requests"] != n_requests or set(summary["by_status"]) - {"ok", "degraded"}
+            or set(summary["per_worker"]) != {"w0", "w1"} or summary["worker_deaths"]
+            or len(samples) != n_requests or not metrics):
+        raise SystemExit(f"fleet_serve failed: {summary}")
+    out["fleet_serve"] = dict(requests=summary["requests"], rps=summary["throughput_rps"],
+                              wall_s=summary["wall_s"],
+                              ipc_overhead_fraction=summary["ipc_overhead_fraction"])
+    print(f"fleet: fleet_serve(worker_procs=2, window 2, 8 tenants, dataset index 0): "
+          f"{summary['requests']} requests in {summary['wall_s']:.2f} s with spawn and "
+          f"shutdown, ipc_overhead_fraction {summary['ipc_overhead_fraction']:.3f}; "
+          f"python -m repro_torch.launch.stats --telemetry {tele} --metrics {met}:")
+    print(render(samples, metrics))
+
+    left = children()
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    if left or alive:
+        raise SystemExit(f"fleet: processes left behind: {left} {alive}")
+    print(f"fleet: no worker process left ({len(pids)} pids of the measured routers "
+          f"gone, no live fleet child)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def host_copy_scaling(torch, dev, trace):
     """The two host copies every served request makes — pinning its
     inputs in decide, the pageable ``.cpu()`` of its outputs in dispatch
@@ -1015,24 +1655,31 @@ def device_idle(torch, fn, path):
     to ``path``): its wall time, the device's busy time as the union of
     its kernel, copy and memset intervals on every stream (overlapping
     streams count once), kernels and copies each summed apart, and the
-    idle share.  Raises when the trace holds no device event.  Returns
-    ``(fn's result, stats, the profiler)``."""
+    idle share.  A trace of a few milliseconds has come back with no
+    device event at all (a 4-op runner run that other card runs traced):
+    then ``fn`` runs once more under a new profiler, and a second empty
+    trace raises.  Returns ``(fn's result, stats, the profiler)``."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["cat"]) for e in events
-                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    if not spans:
-        raise SystemExit(f"{path}: the profiler saw no device work")
+    for attempt in (1, 2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        spans = sorted((e["ts"], e["ts"] + e["dur"], e["cat"]) for e in events
+                       if e.get("ph") == "X"
+                       and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        if spans:
+            break
+        print(f"{path}: the profiler saw no device work (attempt {attempt} of 2)")
+    else:
+        raise SystemExit(f"{path}: the profiler saw no device work in 2 attempts")
     busy_us, end = 0.0, float("-inf")
     for a, b, _ in spans:
         if b > end:

@@ -5,6 +5,7 @@
   perf_model  the MLP regression model (ours, torch), with online ``refit``
   learners    CART / random forest / RBF kernel ridge (Table 5)
   heuristic   the zero-training overlap bound (explicit fallback only)
+  classifier  the classification-based prior-work baseline (§6.4)
   search      model-driven config ranking + the SA baseline (§3.3, §2.3)
   dataset     corpus profiling, the profile cache, LOO splits (§3.1.1)
   evaluate    leave-one-program-out CV scoring (§5.3.1)
@@ -23,6 +24,8 @@ from repro_torch.core.modeling.base import (ESTIMATOR_KINDS, Estimator,
                                             EstimatorBase, assemble_rows,
                                             get_estimator_kind,
                                             register_estimator)
+from repro_torch.core.modeling.classifier import (KNNClassifier,
+                                                  merge_labels)
 from repro_torch.core.modeling.evaluate import (evaluate_model, geomean,
                                                 loo_evaluate)
 from repro_torch.core.modeling.heuristic import OverlapHeuristicModel
@@ -43,6 +46,7 @@ __all__ = [
     "FeaturePipeline", "PerformanceModel",
     "TreeRegressor", "ForestRegressor", "KernelRidgeRBF",
     "OverlapHeuristicModel",
+    "KNNClassifier", "merge_labels",
     "search_best", "search_best_batch", "simulated_annealing",
     "evaluate_model", "loo_evaluate", "geomean",
     "SchemaMismatchError", "save_artifact", "load_artifact",

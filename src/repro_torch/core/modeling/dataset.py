@@ -36,6 +36,10 @@ def default_cache_path(device="cuda") -> Path:
     return Path(env) if env else REPO_ROOT / "build" / name
 
 
+#: the card's cache path as resolved at import (the JAX package's name)
+DEFAULT_CACHE = default_cache_path()
+
+
 @dataclasses.dataclass
 class Sample:
     """One (program, dataset) cell with its full profiled config grid."""

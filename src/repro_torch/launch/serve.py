@@ -9,7 +9,10 @@ Two entry points share this module:
     :class:`repro_torch.serving.AdaptiveScheduler` (window 1) or
     :class:`repro_torch.serving.ConcurrentScheduler` (window > 1) —
     per-request model-predicted configs, tuning-cache warm hits, JSONL
-    telemetry, and drift-triggered refinement.
+    telemetry, and drift-triggered refinement;
+  * the fleet (``fleet_serve``, ``--worker-procs N``): the same trace
+    through :class:`repro_torch.serving.FleetRouter` over N worker
+    processes, tenants sharded across them, one CUDA context each.
 
 LM requests are batched in fixed slots (``batch_slots`` sequences per batch,
 the last batch may be short).  Each batch is prefilled in one forward pass;
@@ -22,6 +25,8 @@ packages serve the same tokens.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b
     PYTHONPATH=src python -m repro_torch.launch.serve --adaptive \
         [--device cpu] [--model heuristic] [--window 4]
+    PYTHONPATH=src python -m repro_torch.launch.serve --worker-procs 2 \
+        [--device cpu] [--model heuristic]
 """
 from __future__ import annotations
 
@@ -378,6 +383,98 @@ def adaptive_serve(
     return summary
 
 
+def fleet_serve(
+    workloads: Sequence[str] = DEFAULT_ADAPTIVE_WORKLOADS,
+    *,
+    n_requests: int = 16,
+    worker_procs: int = 2,
+    window: int = 2,
+    backend: str = "host-sync",
+    policy: str = "fifo",
+    tenants: int = 8,
+    model: str = "latest",
+    model_dir=None,
+    telemetry_path: Optional[str] = None,
+    cache_path: Optional[str] = None,
+    metrics_out: Optional[str] = None,
+    drift_threshold: float = 4.0,
+    wire: str = "auto",
+    seed: int = 0,
+    verbose: bool = True,
+    device="cuda",
+) -> dict:
+    """Serve a mixed multi-tenant trace through the fleet router:
+    ``worker_procs`` spawn-isolated worker processes, each running its
+    own :class:`~repro_torch.serving.ConcurrentScheduler` with
+    ``window`` requests in flight on ``device`` (on the card, one CUDA
+    context per worker process), tenants sharded stably across them.
+
+    The model spec is resolved *once* here (bootstrap-training if the
+    registry is empty, exactly like single-process serving) and the
+    pinned artifact id is what ships to the workers — N processes load
+    one immutable registry version instead of racing ``latest``.
+    Returns the merged fleet summary: worker-labeled telemetry
+    aggregates, a ``per_worker`` breakdown, respawn/death counters, and
+    (when ``metrics_out`` is set) the merged worker-labeled metrics
+    snapshot, which ``repro_torch.launch.stats --metrics`` renders
+    unchanged.
+    """
+    from repro_torch.serving import make_trace
+    from repro_torch.serving.fleet import FleetRouter, WorkerConfig
+
+    dev = resolve_device(device)
+    model_obj, model_info = resolve_serving_model(
+        model, model_dir, verbose=verbose, device=dev)
+    del model_obj                     # workers load their own copy
+    spec = (model_info["artifact_id"]
+            if model_info["kind"] != "heuristic" else "heuristic")
+    occurrences = -(-n_requests // len(workloads))  # ceil
+    trace = make_trace(list(workloads), occurrences=occurrences,
+                       tenants=max(tenants, 1), seed=seed)[:n_requests]
+    cfg = WorkerConfig(backend=backend, window=window, model=spec,
+                       model_dir=model_dir, drift_threshold=drift_threshold,
+                       cache_path=cache_path, wire=wire, device=str(dev))
+    t0 = time.perf_counter()
+    with FleetRouter(worker_procs, worker=cfg, policy=policy,
+                     telemetry_path=telemetry_path) as router:
+        router.submit_all(trace)
+        results = router.run()
+        if verbose:
+            for r in results:
+                cfg_s = ("x".join(map(str, r["config"]))
+                         if r["config"] else "-")
+                meas = (f"{r['measured_s']*1e6:8.0f}us"
+                        if r["measured_s"] is not None else "        -")
+                print(f"  {r['sample'].get('worker', '?'):3s} "
+                      f"{r['tenant']:10s} {r['workload']:12s} {cfg_s:8s} "
+                      f"{'hit ' if r['cache_hit'] else 'cold'} "
+                      f"measured={meas} {r['status']}", file=sys.stderr)
+        wall = time.perf_counter() - t0
+    summary = router.summary()
+    summary["wall_s"] = wall
+    summary["backend"] = backend
+    summary["policy"] = policy
+    summary["model"] = model_info
+    summary["window"] = window
+    summary["worker_procs"] = worker_procs
+    summary["throughput_rps"] = len(results) / max(wall, 1e-12)
+    summary["ipc"] = dict(router.last_run)
+    summary["device"] = str(dev)
+    if verbose and summary.get("ipc_overhead_fraction") is not None:
+        print(f"  ipc overhead: "
+              f"{summary['ipc_overhead_fraction']*100:.1f}% of run wall "
+              f"({summary['result_frames']} result frames, "
+              f"{summary['dispatch_frames']} dispatch frames)",
+              file=sys.stderr)
+    if metrics_out:
+        from repro_torch.serving.resilience import atomic_write_json
+        atomic_write_json(metrics_out, router.metrics_snapshot())
+        if verbose:
+            print(f"merged fleet metrics -> {metrics_out}",
+                  file=sys.stderr)
+    return summary
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=list_archs(),
@@ -404,15 +501,30 @@ def main() -> None:
                     help="append-only JSONL telemetry path")
     ap.add_argument("--tuning-cache", default=None,
                     help="persistent tuning-cache JSON path")
-    ap.add_argument("--window", type=int, default=1,
+    ap.add_argument("--window", type=int, default=None,
                     help="in-flight request window; >1 serves through "
-                         "the concurrent engine")
+                         "the concurrent engine (default: 1, or 2 per "
+                         "worker under --worker-procs)")
     ap.add_argument("--workers", type=int, default=None,
                     help="concurrent engine pool size (default: window)")
+    ap.add_argument("--worker-procs", type=int, default=0,
+                    help="serve through the fleet router with this many "
+                         "worker PROCESSES (tenant-sharded, respawn on "
+                         "death, one CUDA context each on the card; "
+                         "implies --adaptive).  Each worker runs its own "
+                         "concurrent engine with --window requests in "
+                         "flight; 0 = single-process")
+    ap.add_argument("--wire", default="auto",
+                    choices=["auto", "v2", "legacy"],
+                    help="fleet result wire: 'v2' batched frames of "
+                         "positional rows, 'legacy' per-request payload "
+                         "dicts, 'auto' = $REPRO_FLEET_WIRE or v2 "
+                         "(only meaningful with --worker-procs)")
     ap.add_argument("--tenants", type=int, default=0,
                     help="serve N isolated tenants (per-tenant cache "
                          "namespace, drift windows, model fork on "
-                         "refit); 0 = legacy shared-state trace")
+                         "refit); 0 = legacy shared-state trace "
+                         "(8 tenants under --worker-procs)")
     ap.add_argument("--model", default="latest",
                     help="'latest' (registry-pinned trained artifact, "
                          "the default), an artifact id/path, or "
@@ -442,6 +554,23 @@ def main() -> None:
                          "injection (implies --resilience)")
     args = ap.parse_args()
 
+    if args.worker_procs and args.worker_procs > 0:
+        summary = fleet_serve(
+            args.workloads.split(","),
+            n_requests=args.requests,
+            worker_procs=args.worker_procs,
+            window=args.window if args.window is not None else 2,
+            backend=args.backend,
+            policy=args.policy,
+            tenants=args.tenants if args.tenants > 0 else 8,
+            model=args.model, model_dir=args.model_dir,
+            telemetry_path=args.telemetry,
+            cache_path=args.tuning_cache,
+            metrics_out=args.metrics_out,
+            wire=args.wire, device=args.device)
+        print(json.dumps(summary, indent=2))
+        return
+
     if args.adaptive:
         summary = adaptive_serve(
             args.workloads.split(","),
@@ -449,7 +578,8 @@ def main() -> None:
             policy=args.policy, slo_ms=args.slo_ms,
             telemetry_path=args.telemetry,
             cache_path=args.tuning_cache,
-            window=args.window, workers=args.workers, tenants=args.tenants,
+            window=args.window if args.window is not None else 1,
+            workers=args.workers, tenants=args.tenants,
             model=args.model, model_dir=args.model_dir,
             trace_out=args.trace_out, metrics_out=args.metrics_out,
             resilience=args.resilience, watchdog_ms=args.watchdog_ms,

@@ -26,12 +26,25 @@ individual request failure instead of scheduler crashes; pass
 ``faults=FaultPlan(...)`` to deterministically inject the failures that
 prove it.
 
-The JAX package's fleet router (``fleet/``) and trace-replay harness
-(``traces.py``) are not ported yet.
+Fleet serving (``fleet/``): :class:`FleetRouter` shards tenants across
+N spawn-isolated worker processes (each one a private
+``ConcurrentScheduler`` + tuning cache + telemetry/metrics stream, on
+its own CUDA context on the card), respawns dead workers and requeues
+their un-acked work, and merges the per-worker streams into one
+worker-labeled fleet view.
+
+Trace replay (``traces.py``): :func:`generate_trace` makes seeded
+request streams and :func:`simulate_trace` replays them on a virtual
+clock through the real queue, drift detector and cache keys, with
+service times from a seeded model — no device, so its reports are
+deterministic and equal the JAX package's.
 """
 from repro_torch.serving.clock import SystemClock, VirtualClock
 from repro_torch.serving.engine import (ConcurrentScheduler, ContextPool,
                                         OrderedRetirer)
+from repro_torch.serving.fleet import (FleetRouter, WorkerConfig,
+                                       fleet_summary, merge_metrics,
+                                       merge_samples, shard_for)
 from repro_torch.serving.observability import (NULL_METRICS, NULL_TRACER,
                                                HotPathProfiler,
                                                MetricsRegistry, NullMetrics,
@@ -57,15 +70,20 @@ from repro_torch.serving.telemetry import (TelemetryLog, TelemetrySample,
                                            latency_stats, percentile,
                                            relative_error)
 from repro_torch.serving.tenancy import TenantContext, TenantRegistry
+from repro_torch.serving.traces import (ServiceModel, TraceConfig,
+                                        generate_trace, simulate_trace)
 
 __all__ = [
     "POLICIES", "RequestQueue", "WorkloadRequest",
     "SystemClock", "VirtualClock",
+    "ServiceModel", "TraceConfig", "generate_trace", "simulate_trace",
     "latency_stats", "percentile",
     "DriftDetector", "RefinementResult", "Refiner", "contention_factor",
     "AdaptiveScheduler", "OverlapHeuristicModel", "PendingRequest",
     "RequestResult", "make_trace",
     "ConcurrentScheduler", "ContextPool", "OrderedRetirer",
+    "FleetRouter", "WorkerConfig", "shard_for",
+    "merge_samples", "merge_metrics", "fleet_summary",
     "TelemetryLog", "TelemetrySample", "relative_error",
     "TenantContext", "TenantRegistry",
     "Tracer", "NullTracer", "NULL_TRACER",

@@ -98,7 +98,11 @@ def test_cli_refuses_to_run_on_the_cpu_quietly():
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.launch.serve, repro_torch.weights, "
             "repro_torch.kernels.ops, repro_torch.serving, repro_torch.core.autotuner, "
-            "repro_torch.launch.train_model; "
+            "repro_torch.launch.train_model, repro_torch.serving.fleet, "
+            "repro_torch.serving.traces, repro_torch.launch.stats, "
+            "repro_torch.core.analytical, repro_torch.core.classifier, "
+            "repro_torch.core.dataset, repro_torch.core.perf_model, "
+            "repro_torch.core.search; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
