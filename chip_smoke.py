@@ -15,7 +15,13 @@ On one NVIDIA card (written for an H100) it
    16 new tokens), then 4 requests on stablelm-3b at full width and depth
    (head dim 80, prompt 256, 8 new tokens), and checks for each that every
    kernel was launched as often as the model needs and that every logit is
-   finite;
+   finite; then the recurrent and MoE blocks: reduced jamba, xlstm, grok
+   and arctic on the card against the CPU, xlstm-350m served at full width
+   and depth (4 slots, prompt 512, 16 new tokens), and grok-1-314b (2
+   layers), jamba-1.5-large-398b (2) and arctic-480b (1) at full width,
+   depth cut to fit the card, prefilled at 4 x 512 and decoded 8 tokens,
+   each with its launch counts, peak memory, idle share and the time per
+   step of its recurrence;
 4. times each kernel at the serving shapes against its bounds, its plain
    version and the nearest single PyTorch call (the RMSNorm decode shape
    both per call, host included, and per launch on the device; RMSNorm with
@@ -39,7 +45,10 @@ On one NVIDIA card (written for an H100) it
    poison -> drift -> refinement drill and the ``adaptive_serve`` entry
    point with its trace and metrics files; prints requests/s, latency,
    stage times, hit rate, configs, the capacity probe, the pinning cost
-   and the device's idle share;
+   and the device's idle share; then serves the committed fault plan
+   ``benchmarks/data/chaos_faults.json`` through ``adaptive_serve`` (400
+   requests, ``host-threads``, window 4) and gates on no crash, every
+   request terminal and no failure the plan did not inject;
 7. scores the paper's baselines on the autotune phase's 12-cell corpus
    (no new profiling): Liu et al. and Werkhoven et al. from each cell's
    features, the k-NN classifier (k=3) under leave-one-program-out, beside
@@ -57,15 +66,18 @@ On one NVIDIA card (written for an H100) it
    per-worker breakdown, ``ipc_overhead_fraction``, spawn seconds and
    each worker's device memory; runs the SIGKILL drill at 2 workers;
    serves two long warm windows (1,200 requests each, 6 in every task
-   message, drift off) at 1, 2 and 4 workers and at 1 and 4 workers
-   spawned with one intra-op thread each, and prints requests/s and each
-   worker's engine time per request; holds the first request of every
+   message, drift off) at 1, 2 and 4 workers, each with its even share
+   of the host's cores, and at 4 workers with every core each, and
+   prints requests/s, the
+   intra-op threads each worker reported and each worker's engine time
+   per request; holds the first request of every
    (workload, tenant) bucket, as each worker served it, against the CPU;
    times one message of 2, 12 and 46 MB through a pipe; and renders the
    merged telemetry and metrics of ``fleet_serve`` with
    ``launch/stats.py``;
 10. prints an ``{"autotune": {...}}`` line, a ``{"serving": {...}}``
-   line, ``{"baselines": ...}``, ``{"real_trace": ...}`` and
+   line, ``{"chaos": ...}``, ``{"recurrent_moe": ...}``,
+   ``{"baselines": ...}``, ``{"real_trace": ...}`` and
    ``{"fleet": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, ...}``.
 
@@ -120,6 +132,18 @@ OTHER_ATTN = {"stablelm-3b": (4, 512, 32, 32, 80), "pixtral-12b": (4, 512, 32, 8
 SL_ATTN = (4, 256, 32, 32, 80)
 SL_NORM_PREFILL = (4, 256, 2560)
 SL_NORM_DECODE = (4, 1, 2560)
+# the recurrent and MoE phase: the row width of each arch (xlstm-350m,
+# grok-1-314b, arctic-480b, jamba-1.5-large-398b: 8192 is the RMSNorm
+# kernel's widest row), and the prefill attention of the archs that have it
+# at 4 slots x 512 tokens (jamba's attention position is past the depth the
+# card holds at full width)
+RECURRENT_MOE_WIDTHS = {"xlstm-350m": 1024, "grok-1-314b": 6144, "arctic-480b": 7168,
+                        "jamba-1.5-large-398b": 8192}
+MOE_ATTN = {"grok-1-314b": (4, 512, 48, 8, 128), "arctic-480b": (4, 512, 56, 8, 128)}
+# depth of each arch the card holds at full width in fp32 (parameters of
+# the embedding, the LM head and that many layers: grok 45.8 GB, jamba
+# 48.7 GB, arctic 56.3 GB of 80)
+FULL_WIDTH_DEPTH = {"grok-1-314b": 2, "jamba-1.5-large-398b": 2, "arctic-480b": 1}
 
 
 def smi() -> str:
@@ -220,6 +244,9 @@ def main() -> int:
     B, S, H, KV, hd = SL_ATTN
     main_err["flash_attention"] = max(main_err["flash_attention"], attn_case(
         f"stablelm-3b prefill {SL_ATTN}", B, S, S, H, KV, hd, torch.float32))
+    for arch, (B, S, H, KV, hd) in MOE_ATTN.items():
+        main_err["flash_attention"] = max(main_err["flash_attention"], attn_case(
+            f"{arch} prefill {(B, S, H, KV, hd)}", B, S, S, H, KV, hd, torch.float32))
 
     def norm_case(label, shape, dtype, ones=False):
         x = randn(shape, dtype)
@@ -251,6 +278,10 @@ def main() -> int:
     for label, shape in (("prefill", SL_NORM_PREFILL), ("decode", SL_NORM_DECODE)):
         main_err["rmsnorm"] = max(main_err["rmsnorm"], norm_case(
             f"stablelm-3b {label} {shape}", shape, torch.float32))
+    for arch, d in RECURRENT_MOE_WIDTHS.items():
+        for label, shape in (("prefill", (4, 512, d)), ("decode", (4, 1, d))):
+            main_err["rmsnorm"] = max(main_err["rmsnorm"], norm_case(
+                f"{arch} {label} {shape}", shape, torch.float32))
 
     # The main path at a small size: reduced yi-9b, the same weights on the
     # card and on the CPU (plain versions) give the same logits and tokens.
@@ -289,6 +320,7 @@ def main() -> int:
     res = serve("yi-9b", reduced=False, n_requests=n_req, batch_slots=slots,
                 prompt_len=prompt_len, gen_len=gen_len, device="cuda")
     launches = ops.launch_counts()
+    path_launches = dict(launches)  # every full-width run of the main path
     total_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"serve yi-9b full width: {res.tokens_generated} tokens in "
@@ -322,6 +354,13 @@ def main() -> int:
                          f"{res.logits_finite}, outputs ok {sl_ok}")
     del res
     torch.cuda.empty_cache()
+    for k in path_launches:
+        path_launches[k] += sl_launches[k]
+
+    # -- 3b. the recurrent and MoE blocks ---------------------------------------
+    recurrent = recurrent_moe_phase(torch, dev, card)
+    for k in path_launches:
+        path_launches[k] += recurrent["launches"][k]
 
     # -- 4. times at the main-path shapes --------------------------------------
     def time_ms(fn, sets, iters=50):
@@ -383,7 +422,7 @@ def main() -> int:
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:123",
-        launches=launches["flash_attention"], max_abs_err=main_err["flash_attention"],
+        launches=path_launches["flash_attention"], max_abs_err=main_err["flash_attention"],
         ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib))
     for arch, shape in OTHER_ATTN.items():
         _, _, t_k, t_l, _ = time_attn(shape)
@@ -424,7 +463,7 @@ def main() -> int:
     t_kernel, t_plain, t_lib, b_ms, b_by = norm_times["prefill"]
     rows.append(dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm.py:35", launches=launches["rmsnorm"],
+        replaces="src/repro/kernels/rmsnorm.py:35", launches=path_launches["rmsnorm"],
         max_abs_err=main_err["rmsnorm"], ms=t_kernel, plain_ms=t_plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=t_lib))
 
@@ -435,6 +474,7 @@ def main() -> int:
 
     # -- 6. adaptive serving ---------------------------------------------------
     serving = serving_phase(torch, dev, autotune["artifact_id"])
+    chaos = chaos_phase(autotune["artifact_id"])
 
     # -- 7. the paper's baselines on the card corpus ---------------------------
     baselines = baselines_phase(dev, autotune)
@@ -449,6 +489,8 @@ def main() -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"autotune": autotune}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"chaos": chaos}))
+    print(json.dumps({"recurrent_moe": recurrent}))
     print(json.dumps({"baselines": baselines}))
     print(json.dumps({"real_trace": real_trace}))
     print(json.dumps({"fleet": fleet}))
@@ -458,6 +500,291 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _norms_per_forward(cfg):
+    """RMSNorm launches of one forward: norm1 in every block, norm2 where
+    the block has an FFN, and the final norm."""
+    from repro_torch.models import transformer
+
+    P = len(cfg.layer_pattern)
+    return sum(1 + transformer._has_ffn(cfg, l % P) for l in range(cfg.num_layers)) + 1
+
+
+def _step_us(torch, fn, steps):
+    """Host and wall microseconds per time step of ``fn()``, a full-sequence
+    pass over ``steps`` steps: host = until ``fn`` returns, wall = until the
+    card is done too."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return host / steps * 1e6, wall / steps * 1e6
+
+
+def recurrent_moe_phase(torch, dev, card):
+    """The mamba, MoE and xLSTM blocks on the card, fp32, random weights.
+
+    1. Reduced jamba (all 8 pattern positions), xlstm, grok and arctic: the
+       same weights on the card and on the CPU (plain versions) give the
+       same prefill logits (atol 1e-4) and the same served tokens.
+    2. xlstm-350m at full width and depth through ``serve``: 4 slots,
+       prompt 512, 16 new tokens.
+    3. grok-1-314b (2 layers), jamba-1.5-large-398b (2: mamba with the
+       dense MLP, mamba with the 16-expert MoE) and arctic-480b (1) at full
+       width through ``Model.prefill`` and ``Model.decode_step``: one batch
+       of 4 x 512 prompt tokens and 8 new tokens.
+
+    Each full-width run prints tokens/s with prefill and decode apart, peak
+    device memory, the device's idle share over one decode step (and, for
+    the three cut models, over one prefill), the host and wall time per
+    step of each recurrent block's full-sequence pass, and its RMSNorm and
+    flash launches against the counts the config implies; every logit must
+    be finite.  Returns the summary, with the launches of the full-width
+    runs summed; any failure raises."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import layers, mamba, xlstm
+    from repro_torch.models.model_zoo import Model, build_model
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "reduced": {}, "full": {}}
+    total = {"flash_attention": 0, "rmsnorm": 0}
+    failures = []
+
+    # -- 1. reduced configs: card against CPU
+    small = dict(n_requests=5, batch_slots=2, prompt_len=64, gen_len=8, reduced=True,
+                 verbose=False)
+    for arch in ("jamba-1.5-large-398b", "xlstm-350m", "grok-1-314b", "arctic-480b"):
+        cpu_model = build_model(arch, reduced=True, device="cpu")
+        cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+        gpu_params = _to(cpu_params, dev)
+        gpu_model = build_model(arch, reduced=True, device=dev)
+        toks = torch.from_numpy(_prompts(cpu_model.cfg.vocab_size, (2, 64)))
+        with torch.inference_mode():
+            lc, _ = cpu_model.prefill(cpu_params, {"tokens": toks})
+            lg, _ = gpu_model.prefill(gpu_params, {"tokens": toks.to(dev)})
+        err = (lg.cpu() - lc).abs().max().item()
+        r_cpu = serve(arch, device="cpu", params=cpu_params, **small)
+        r_gpu = serve(arch, device=dev, params=gpu_params, **small)
+        same = all((a == b).all() for a, b in zip(r_cpu.outputs, r_gpu.outputs))
+        ok = err <= 1e-4 and same and len(r_gpu.outputs) == 5 and r_gpu.logits_finite
+        out["reduced"][arch] = dict(max_abs_err=err, tokens_identical=bool(same))
+        print(f"recurrent/MoE: reduced {arch} ({cpu_model.cfg.num_layers} layers, pattern "
+              f"{tuple(cpu_model.cfg.layer_pattern)}) card vs CPU: prefill logits "
+              f"max_abs_err={err:.3e} tol=1e-4, served tokens identical={same} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"reduced {arch} card vs CPU: err {err:.3e}, same {same}")
+    del cpu_params, gpu_params
+    torch.cuda.empty_cache()
+
+    def recurrence(cfg, params, B, S):
+        """Host and wall us per step of each recurrent block type's
+        full-sequence pass at (B, S), on the first layer of that type."""
+        gen = torch.Generator(device=dev).manual_seed(2)
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+        row = {}
+        for l, btype in enumerate(cfg.layer_pattern):
+            bp = params["blocks"][l]
+            if btype in row or btype == "attn":
+                continue
+            if btype == "mamba":
+                def fn():
+                    return mamba.mamba_apply(bp["mamba"], x, cfg.ssm)
+            elif btype == "slstm":
+                def fn():
+                    return xlstm.slstm_apply(bp["cell"], x, cfg.num_heads)
+            else:
+                def fn():
+                    return xlstm.mlstm_apply(bp["cell"], x, cfg.num_heads, cfg.xlstm)
+            fn()                           # warm
+            host, wall = _step_us(torch, fn, S)
+            row[btype] = dict(host_us_per_step=host, wall_us_per_step=wall)
+        return row
+
+    def report(arch, cfg, row):
+        rec = "; ".join(f"{b} full-sequence pass: host {v['host_us_per_step']:.1f} us, wall "
+                        f"{v['wall_us_per_step']:.1f} us per step"
+                        for b, v in row["recurrence"].items())
+        print(f"recurrent/MoE: {arch} at full width, {cfg.num_layers} of "
+              f"{get_arch(arch).num_layers} layers ({row['params'] / 1e9:.2f} B parameters, "
+              f"{row['param_gb']:.1f} GB fp32): {row['tokens']} tokens in "
+              f"{row['prefill_s'] + row['decode_s']:.3f} s = {row['tokens_per_s']:.1f} tok/s; "
+              f"prefill {row['prefill_s']:.3f} s, decode {row['decode_s']:.3f} s "
+              f"({row['decode_ms_per_step']:.2f} ms a step); peak memory "
+              f"{row['peak_gb']:.1f} GB; launches {row['launches']} (expected "
+              f"{row['want_launches']}); logits finite {row['finite']}; {card}")
+        print(f"  idle over one decode step: {idle_line(row['idle_decode'])}")
+        if "idle_prefill" in row:
+            print(f"  idle over one prefill: {idle_line(row['idle_prefill'])}")
+        if rec:
+            print(f"  {rec}")
+        if (row["launches"] != row["want_launches"] or not row["finite"]):
+            failures.append(f"{arch} full width: launches {row['launches']} (expected "
+                            f"{row['want_launches']}), finite {row['finite']}")
+        for k in total:
+            total[k] += row["launches"][k]
+        out["full"][arch] = row
+
+    B, P = 4, 512
+
+    # -- 2. xlstm-350m at full width and depth, through serve
+    cfg = get_arch("xlstm-350m")
+    G = 16
+    want = {"flash_attention": cfg.attn_layers, "rmsnorm": G * _norms_per_forward(cfg)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve("xlstm-350m", reduced=False, n_requests=B, batch_slots=B, prompt_len=P,
+                gen_len=G, device="cuda", verbose=False)
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ok_out = len(res.outputs) == B and all(o.shape == (G,) for o in res.outputs)
+    model = build_model("xlstm-350m", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = layers.param_count(params)
+    toks = torch.from_numpy(_prompts(cfg.vocab_size, (B, P))).to(dev)
+    with torch.inference_mode():
+        logits, filled = model.prefill(params, {"tokens": toks})
+        cache = model.decode_cache(filled, P + 2)
+        nxt = {"tokens": logits.argmax(dim=-1)[:, None]}
+        _, idle, _ = device_idle(torch, lambda: model.decode_step(params, nxt, cache, P),
+                                 os.path.join(ROOT, "build", "chip_smoke", "xlstm_decode.json"))
+    row = dict(depth=cfg.num_layers, params=n_params, param_gb=n_params * 4 / 1e9,
+               tokens=res.tokens_generated, prefill_s=res.prefill_s,
+               decode_s=res.wall_s - res.prefill_s, tokens_per_s=res.tokens_per_s,
+               decode_ms_per_step=(res.wall_s - res.prefill_s) / (G - 1) * 1e3,
+               peak_gb=peak_gb, launches=launches, want_launches=want,
+               finite=bool(res.logits_finite and ok_out), idle_decode=idle,
+               recurrence=recurrence(cfg, params, B, P))
+    report("xlstm-350m", cfg, row)
+    del res, model, params, logits, filled, cache
+    torch.cuda.empty_cache()
+
+    # -- 3. MoE and mamba at full width, depth cut to fit the card
+    G = 8
+    for arch, depth in FULL_WIDTH_DEPTH.items():
+        base = get_arch(arch)
+        cfg = dataclasses.replace(base, num_layers=depth,
+                                  layer_pattern=tuple(base.layer_pattern)[:depth])
+        want = {"flash_attention": cfg.attn_layers, "rmsnorm": G * _norms_per_forward(cfg)}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = layers.param_count(params)
+        toks = torch.from_numpy(_prompts(cfg.vocab_size, (B, P))).to(dev)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, filled = model.prefill(params, {"tokens": toks})
+            cache = model.decode_cache(filled, P + G)
+            del filled
+            finite = torch.isfinite(logits).all()
+            tok = logits.argmax(dim=-1)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            for i in range(G - 1):
+                logits, cache = model.decode_step(params, {"tokens": tok[:, None]}, cache,
+                                                  P + i)
+                finite &= torch.isfinite(logits).all()
+                tok = logits.argmax(dim=-1)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0 - prefill_s
+        launches = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with torch.inference_mode():
+            nxt = {"tokens": tok[:, None]}
+            _, idle_d, _ = device_idle(
+                torch, lambda: model.decode_step(params, nxt, cache, P + G - 1),
+                os.path.join(ROOT, "build", "chip_smoke", f"{arch}_decode.json"))
+            _, idle_p, _ = device_idle(
+                torch, lambda: model.prefill(params, {"tokens": toks}),
+                os.path.join(ROOT, "build", "chip_smoke", f"{arch}_prefill.json"))
+        row = dict(depth=depth, params=n_params, param_gb=n_params * 4 / 1e9, init_s=init_s,
+                   tokens=B * G, prefill_s=prefill_s, decode_s=decode_s,
+                   tokens_per_s=B * G / (prefill_s + decode_s),
+                   decode_ms_per_step=decode_s / (G - 1) * 1e3, peak_gb=peak_gb,
+                   launches=launches, want_launches=want, finite=bool(finite.item()),
+                   idle_decode=idle_d, idle_prefill=idle_p,
+                   recurrence=recurrence(cfg, params, B, P))
+        report(arch, cfg, row)
+        del model, params, logits, cache, tok
+        torch.cuda.empty_cache()
+
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"recurrent/MoE: launches of the full-width runs {total}; phase "
+          f"{out['phase_s']:.1f} s")
+    if failures:
+        raise SystemExit("recurrent/MoE phase failed:\n  " + "\n  ".join(failures))
+    return out
+
+
+def chaos_phase(artifact_id):
+    """``adaptive_serve`` on the card under the JAX package's committed fault
+    plan (``benchmarks/data/chaos_faults.json``, read only), at the settings
+    of ``benchmarks/data/BENCH_resilience_smoke.json``: vecadd, dotprod and
+    mvmult, 400 requests, ``host-threads``, window 4, 2 engine workers,
+    watchdog 0.25 s, with the autotune phase's artifact.  Gated as that
+    benchmark gates it: no crash, and every request terminal; and no
+    request may fail for a reason the plan did not inject (an error that
+    is not an ``InjectedFault``, or a timeout)."""
+    import collections
+
+    from repro_torch.launch.serve import adaptive_serve
+    from repro_torch.serving import TelemetryLog
+
+    plan = os.path.join(ROOT, "benchmarks", "data", "chaos_faults.json")
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    met, tele = os.path.join(work, "chaos_metrics.json"), os.path.join(work, "chaos.jsonl")
+    os.makedirs(work, exist_ok=True)
+    if os.path.exists(tele):
+        os.remove(tele)
+    n = 400
+    t0 = time.perf_counter()
+    crashes, summary, error = 0, {}, None
+    try:
+        summary = adaptive_serve(("vecadd", "dotprod", "mvmult"), n_requests=n,
+                                 backend="host-threads", window=4, workers=2,
+                                 watchdog_ms=250.0, fault_plan=plan, model=artifact_id,
+                                 model_dir=os.path.join(ROOT, "build", "models"),
+                                 telemetry_path=tele, metrics_out=met, verbose=False,
+                                 device="cuda")
+    except Exception as e:  # noqa: BLE001 — a crash is the gated outcome
+        crashes, error = 1, f"{type(e).__name__}: {e}"
+    wall = time.perf_counter() - t0
+    by_status = summary.get("by_status", {})
+    terminal = sum(v for k, v in by_status.items()
+                   if k in ("ok", "degraded", "failed", "timeout"))
+    injected = sum(v["value"] for v in summary.get("metrics", {}).get(
+        "serving.faults.injected", {}).get("values", []))
+    errors = collections.Counter(
+        (s.error or "").split(":")[0] for s in (TelemetryLog.read(tele) if not crashes else [])
+        if s.status in ("failed", "timeout"))
+    foreign = sum(v for k, v in errors.items() if k != "InjectedFault")
+    out = dict(requests=n, crashes=crashes, terminal_fraction=terminal / n,
+               by_status=by_status, faults_injected=injected, failure_errors=dict(errors),
+               wall_s=wall)
+    print(f"chaos: adaptive_serve under {os.path.relpath(plan, ROOT)}: {n} requests, "
+          f"host-threads, window 4, 2 workers, watchdog 0.25 s: statuses {by_status}, "
+          f"{injected} faults injected, failures by error {dict(errors)}, crashes {crashes}, "
+          f"terminal fraction {terminal / n:.4f}, {wall:.2f} s"
+          + (f"; {error}" if error else ""))
+    if crashes or terminal != n or foreign:
+        raise SystemExit(f"chaos phase failed: {out}")
+    return out
 
 
 def autotune_phase(torch, dev):
@@ -1171,8 +1498,9 @@ def fleet_phase(torch, artifact_id):
     artifact pinned by id; at 1, 2 and 4 worker processes, each its own
     CUDA context, 3 reps in one router (rep 1 cold, reps 2-3 warm), and
     the SIGKILL drill at 2 workers.  Then, in routers of their own with
-    drift off, two long warm windows at 1, 2 and 4 workers, and at 1 and
-    4 workers spawned with one intra-op thread; and ``fleet_serve`` at 2
+    drift off, two long warm windows at 1, 2 and 4 workers with the
+    router's default intra-op threads, and at 4 workers with every core
+    each; and ``fleet_serve`` at 2
     workers with its telemetry and metrics files rendered by the stats
     CLI.  Every request
     must be served by the worker its tenant hashes to; the first request
@@ -1289,16 +1617,20 @@ def fleet_phase(torch, artifact_id):
         """FLEET_LONG_WINDOWS long warm windows in a router of their own:
         FLEET_LONG_CHUNK requests in every task message at every N, drift
         off (threshold 1e9, as the real trace runs: a refinement re-profiles
-        for ~0.4 s and would time the refiner, not the serving), workers
-        spawned with ``OMP_NUM_THREADS=threads`` when given; one cold rep
-        first warms every bucket."""
-        label = f"N={n}, {f'{threads} intra-op thread' if threads else 'default threads'}"
-        router = FleetRouter(n, worker=dataclasses.replace(cfg, drift_threshold=1e9),
+        for ~0.4 s and would time the refiner, not the serving), each worker
+        with ``threads`` torch intra-op threads when given, else the
+        router's default share of the host's cores; one cold rep first
+        warms every bucket."""
+        label = f"N={n}, {f'{threads} intra-op threads' if threads else 'default threads'}"
+        router = FleetRouter(n, worker=dataclasses.replace(cfg, drift_threshold=1e9,
+                                                           intra_op_threads=threads),
                              dispatch_chunk=FLEET_LONG_CHUNK)
         try:
-            with mock.patch.dict(os.environ, {"OMP_NUM_THREADS": str(threads)} if threads else {}):
-                router.start()
+            router.start()
             pids.update(slot.pid for slot in router._slots)
+            reported = [slot.threads for slot in router._slots]
+            print(f"fleet: {label}: intra-op threads each worker reported {reported} "
+                  f"({os.cpu_count()} cores)")
             router.submit_all(trace())
             gate(f"{label}, rep 1", router.run(), n)
             print(f"fleet: long warm windows, {label}, drift off:")
@@ -1308,16 +1640,17 @@ def fleet_phase(torch, artifact_id):
         out = dict(windows=rows, rps=sum(r["requests"] for r in rows) / sum(r["wall_s"] for r in rows),
                    engine_ms_per_request=sum(w["engine_busy_s"] for r in rows
                                              for w in r["workers"].values())
-                   / sum(r["requests"] for r in rows) * 1e3)
+                   / sum(r["requests"] for r in rows) * 1e3,
+                   threads_reported=reported)
         out.update(read_checks(label))
+        print(f"fleet: {label}: {out['rps']:.1f} requests/s over the long windows with "
+              f"{reported} intra-op threads per worker")
         return out
 
     def drill(router, n):
         """SIGKILL the worker of tenant-0 once a quarter of a rep has
-        retired, then serve one more rep: a worker that dies with work in
-        flight is respawned within the run, one that had already answered
-        all of its share at the next run's collect; either way its un-acked
-        work is requeued."""
+        retired, then serve one more rep: the death is handled and the seat
+        respawned within the killed run, and its un-acked work requeued."""
         victim = shard_for("tenant-0", n)
         base = dict(router.stats)
         router.submit_all(trace())
@@ -1335,7 +1668,8 @@ def fleet_phase(torch, artifact_id):
         out["death_seen_in_the_killed_run"] = bool(in_run)
         print(f"fleet: SIGKILL drill at N=2: {out}; every request of both reps "
               f"terminal and served by its shard")
-        if out["worker_deaths"] != 1 or out["worker_respawns"] != 1 or out["requeued_requests"] < 1:
+        if (out["worker_deaths"] != 1 or out["worker_respawns"] != 1
+                or out["requeued_requests"] < 1 or not in_run):
             raise SystemExit(f"fleet SIGKILL drill failed: {out}")
         return out
 
@@ -1432,22 +1766,23 @@ def fleet_phase(torch, artifact_id):
             finally:
                 router.close()
             out[f"n{n}"].update(read_checks(f"N={n}"))
-        # the long windows, with torch's default intra-op pool in every
-        # worker and with one thread (four processes of the host's full
-        # thread count each share its cores); N=1 and N=4 side by side
-        long = {f"n{n}{'_one_thread' if t else ''}": long_router(n, t)
-                for n in (1, 4) for t in (None, 1)}
-        long["n2"] = long_router(2)
+        # the long windows with the router's default intra-op threads (an
+        # even share of the host's cores a worker) at N = 1, 2, 4, and at
+        # N=4 with every core in every worker (torch's own default, the
+        # fleet's setting before the share)
+        long = {f"n{n}": long_router(n) for n in (1, 2, 4)}
+        long["n4_all_cores"] = long_router(4, os.cpu_count())
     out["long"] = long
     out["speedup_warm"] = {f"n{n}": out[f"n{n}"]["warm_rps"] / out["n1"]["warm_rps"]
                            for n in (2, 4)}
-    out["speedup_long"] = {k: long[k]["rps"] / long["n1_one_thread" if "one" in k else "n1"]["rps"]
-                           for k in ("n2", "n4", "n4_one_thread")}
+    out["speedup_long"] = {k: long[k]["rps"] / long["n1"]["rps"]
+                           for k in ("n2", "n4", "n4_all_cores")}
     print(f"fleet: warm requests/s over N=1: N=2 {out['speedup_warm']['n2']:.3f}x, "
           f"N=4 {out['speedup_warm']['n4']:.3f}x (24-request reps); long windows, drift "
-          f"off: N=2 {out['speedup_long']['n2']:.3f}x, N=4 {out['speedup_long']['n4']:.3f}x; "
-          f"one intra-op thread a worker, N=4 {out['speedup_long']['n4_one_thread']:.3f}x; "
-          "engine ms per request " + ", ".join(
+          f"off: N=2 {out['speedup_long']['n2']:.3f}x, N=4 {out['speedup_long']['n4']:.3f}x "
+          f"(threads per worker {long['n2']['threads_reported']}, "
+          f"{long['n4']['threads_reported']}); every core in each of 4 workers "
+          f"{out['speedup_long']['n4_all_cores']:.3f}x; engine ms per request " + ", ".join(
               f"{k} {v['engine_ms_per_request']:.3f}" for k, v in long.items()))
 
     # the user's entry point, with its telemetry and metrics files, and the

@@ -16,9 +16,10 @@ Two entry points share this module:
 
 LM requests are batched in fixed slots (``batch_slots`` sequences per batch,
 the last batch may be short).  Each batch is prefilled in one forward pass;
-its k/v are copied into a cache preallocated at ``prompt_len + gen_len``,
-and then every step decodes one token per sequence against that cache,
-which the step updates in place.  Prompts come from
+its k/v are copied into a cache preallocated at ``prompt_len + gen_len``
+and the recurrent layers (mamba, sLSTM, mLSTM) keep the state the prefill
+left, and then every step decodes one token per sequence against that
+cache.  Prompts come from
 ``np.random.default_rng(seed)`` exactly as in the JAX ``serve``, so both
 packages serve the same tokens.
 
@@ -112,10 +113,7 @@ def serve(
             B = chunk.shape[0]
             tp = time.perf_counter()
             logits, filled = model.prefill(params, make_batch(chunk))
-            cache = model.init_cache(B, max_seq)
-            for layer, layer_filled in zip(cache, filled):
-                for kv in ("k", "v"):
-                    layer[kv][:, :prompt_len] = layer_filled[kv]
+            cache = model.decode_cache(filled, max_seq)
             del filled
             sync()
             prefill_s += time.perf_counter() - tp

@@ -1,4 +1,5 @@
-"""Core layers: initialisers, RMSNorm, MLP, embedding and LM head.
+"""Core layers: initialisers, RMSNorm, MLP, embedding, LM head and the
+next-token loss.
 
 Parameters are plain dicts of tensors in the JAX package's layouts, so
 ``repro_torch.weights`` converts a JAX parameter tree by copying.  The
@@ -6,6 +7,8 @@ logical-axes machinery of the JAX ``Leaf`` only serves sharding and is not
 carried over.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,13 +38,30 @@ def embed_init(gen: torch.Generator, shape, *, dtype=torch.float32,
     return w.to(dtype)
 
 
+def zeros_init(shape, *, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones_init(shape, *, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+def param_count(tree) -> int:
+    """Number of parameters in a tree of dicts and lists of tensors."""
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_count(v) for v in tree)
+    return tree.numel()
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
 
 def rmsnorm_init(d: int, *, dtype=torch.float32, device="cpu") -> dict:
-    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+    return {"scale": ones_init((d,), dtype=dtype, device=device)}
 
 
 def rmsnorm_apply(params: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -90,3 +110,23 @@ def embedding_lookup(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 def lm_head_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Project hidden states to vocab logits (weights (vocab, d_model))."""
     return x @ table.T
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy: logits (B,S,V), upcast to fp32,
+    labels (B,S); with ``mask`` (B,S), the mean over the masked-in
+    positions (at least one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -2,8 +2,10 @@
 
 ``Model`` wraps the decoder (``repro_torch.models.transformer``) behind the
 serving entry points of the JAX package's ``Model``:
+    loss(params, batch)                  -- next-token loss + MoE aux
     forward_logits(params, batch)        -- full forward
-    prefill(params, batch)               -- last-token logits + k/v cache
+    prefill(params, batch)               -- last-token logits + filled states
+    decode_cache(filled, max_seq)        -- the decode cache they start
     decode_step(params, batch, cache, t) -- one token against the cache
 """
 from __future__ import annotations
@@ -21,7 +23,6 @@ from repro_torch.models.transformer import RunConfig
 class Model:
     def __init__(self, cfg: ArchConfig, rcfg: Optional[RunConfig] = None, *,
                  device="cuda"):
-        transformer.check_supported(cfg)
         self.cfg = cfg
         self.rcfg = rcfg or RunConfig()
         self.device = resolve_device(device)
@@ -30,12 +31,17 @@ class Model:
         """Random parameters from ``gen``, a generator on this model's device."""
         return transformer.init_params(gen, self.cfg, self.rcfg, device=self.device)
 
+    def loss(self, params, batch):
+        """Returns (loss, {"ce", "moe_aux"}) for ``batch["labels"]``."""
+        return transformer.loss_fn(params, batch, self.cfg, self.rcfg)
+
     def forward_logits(self, params, batch):
         logits, _, _ = transformer.forward(params, batch, self.cfg, self.rcfg)
         return logits
 
     def prefill(self, params, batch):
-        """Returns (last-token logits, populated per-layer k/v cache)."""
+        """Returns (last-token logits, per-layer decode state: k/v over the
+        prompt, or the recurrent state after it)."""
         logits, _, cache = transformer.forward(
             params, batch, self.cfg, self.rcfg, build_cache=True, last_only=True)
         return logits[:, -1], cache
@@ -44,9 +50,24 @@ class Model:
         return transformer.init_cache(self.cfg, self.rcfg, batch_size, max_seq,
                                       device=self.device)
 
+    def decode_cache(self, filled: list, max_seq: int) -> list:
+        """The decode cache after a prefill: each attention layer's k/v
+        copied into a cache of ``max_seq`` positions, each recurrent layer's
+        state taken whole (the JAX ``serve``'s ``grow``)."""
+        first = next(iter(filled[0].values()))
+        cache = self.init_cache(first.shape[0], max_seq)
+        for l, layer_filled in enumerate(filled):
+            if "k" in layer_filled:
+                for kv in ("k", "v"):
+                    cache[l][kv][:, :layer_filled[kv].shape[1]] = layer_filled[kv]
+            else:
+                cache[l] = layer_filled
+        return cache
+
     def decode_step(self, params, batch, cache, t: int):
-        """One serving step: the token at position ``t``; ``cache`` is
-        updated in place and returned."""
+        """One serving step: the token at position ``t``.  Returns the
+        logits and the cache: attention k/v updated in place, recurrent
+        states replaced."""
         logits, _, new_cache = transformer.forward(
             params, batch, self.cfg, self.rcfg, cache=cache, t=t)
         return logits[:, 0], new_cache

@@ -1,14 +1,12 @@
-"""Decoder: attention blocks with a dense MLP, stacked by
-``ArchConfig.layer_pattern``.
+"""Decoder: attention, mamba, sLSTM and mLSTM blocks, each with an optional
+dense or MoE FFN, stacked by ``ArchConfig.layer_pattern``.
 
 The JAX package scans over stacked pattern repeats (``jax.lax.scan``); here
 the blocks are a Python list, one dict per layer, applied in a loop.  Layer
 ``l`` has block type ``layer_pattern[l % len(layer_pattern)]``, the order
-the scan visits them in.
-
-This slice ports the ``attn`` block and the dense FFN.  The other block
-types and MoE FFNs raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+the scan visits them in.  The decode cache is a list of the same length:
+k/v for an attention layer, the recurrent state for the others.  One code
+path serves all ten architectures of ``repro_torch.configs``.
 """
 from __future__ import annotations
 
@@ -19,8 +17,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
-
-_PENDING = "ROADMAP.md queue 1, item 8 'mamba, MoE and xLSTM blocks'"
+from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +32,9 @@ class RunConfig:
     cache_dtype: torch.dtype = torch.float32
     q_block: int = 512
     kv_block: int = 512
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_group_size: int = 512
 
 
 # ---------------------------------------------------------------------------
@@ -56,17 +58,6 @@ def _is_moe(cfg: ArchConfig, pos: int) -> bool:
     return (not moe_set) or (pos in moe_set)
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError if ``cfg`` needs a block this slice lacks."""
-    for pos, btype in enumerate(cfg.layer_pattern):
-        if btype != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: block type {btype!r} is not ported yet ({_PENDING})")
-        if _is_moe(cfg, pos):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE FFNs are not ported yet ({_PENDING})")
-
-
 def _attn_init(gen, cfg: ArchConfig, kw) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
@@ -78,12 +69,25 @@ def _attn_init(gen, cfg: ArchConfig, kw) -> dict:
 
 
 def _block_init(gen, cfg: ArchConfig, pos: int, kw) -> dict:
-    p: dict = {"norm1": layers.rmsnorm_init(cfg.d_model, **kw),
-               "attn": _attn_init(gen, cfg, kw)}
+    btype = cfg.layer_pattern[pos]
+    p: dict = {"norm1": layers.rmsnorm_init(cfg.d_model, **kw)}
+    if btype == "attn":
+        p["attn"] = _attn_init(gen, cfg, kw)
+    elif btype == "mamba":
+        p["mamba"] = mamba_lib.mamba_init(gen, cfg.d_model, cfg.ssm, **kw)
+    elif btype == "slstm":
+        p["cell"] = xlstm_lib.slstm_init(gen, cfg.d_model, cfg.num_heads, cfg.xlstm, **kw)
+    elif btype == "mlstm":
+        p["cell"] = xlstm_lib.mlstm_init(gen, cfg.d_model, cfg.num_heads, cfg.xlstm, **kw)
+    else:
+        raise ValueError(btype)
     if _has_ffn(cfg, pos):
         p["norm2"] = layers.rmsnorm_init(cfg.d_model, **kw)
-        p["ffn"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
-                                   gated=cfg.gated_mlp, **kw)
+        if _is_moe(cfg, pos):
+            p["ffn"] = moe_lib.moe_init(gen, cfg.d_model, cfg.moe, gated=cfg.gated_mlp, **kw)
+        else:
+            p["ffn"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                       gated=cfg.gated_mlp, **kw)
     return p
 
 
@@ -91,7 +95,6 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, rcfg: RunConfig, *,
                 device="cpu") -> dict:
     """Random parameters from ``gen`` (which must live on ``device``), with
     the JAX package's distributions and layouts."""
-    check_supported(cfg)
     kw = dict(dtype=rcfg.param_dtype, device=device)
     params: dict = {
         "embed": layers.embedding_init(gen, cfg.vocab_size, cfg.d_model, **kw),
@@ -115,12 +118,32 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, rcfg: RunConfig, *,
 
 def init_cache(cfg: ArchConfig, rcfg: RunConfig, batch: int, max_seq: int, *,
                device="cpu") -> list:
-    """One {"k", "v"} dict of (batch, max_seq, KV, hd) zeros per layer."""
-    check_supported(cfg)
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=rcfg.cache_dtype, device=device),
-             "v": torch.zeros(shape, dtype=rcfg.cache_dtype, device=device)}
-            for _ in range(cfg.num_layers)]
+    """One state dict per layer: k/v of (batch, max_seq, KV, hd) zeros in
+    ``cache_dtype`` for an attention layer; for mamba the fp32 SSM state
+    and the conv state in ``cache_dtype``; the sLSTM and mLSTM states in
+    fp32 (``m`` at -1e30)."""
+    P = len(cfg.layer_pattern)
+    cache = []
+    for l in range(cfg.num_layers):
+        b = cfg.layer_pattern[l % P]
+        if b == "attn":
+            shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+            cache.append({"k": torch.zeros(shape, dtype=rcfg.cache_dtype, device=device),
+                          "v": torch.zeros(shape, dtype=rcfg.cache_dtype, device=device)})
+        elif b == "mamba":
+            sh = mamba_lib.mamba_state_shapes(batch, cfg.d_model, cfg.ssm)
+            cache.append({
+                "ssm": torch.zeros(sh["ssm"], dtype=torch.float32, device=device),
+                "conv": torch.zeros(sh["conv"], dtype=rcfg.cache_dtype, device=device)})
+        elif b == "slstm":
+            cache.append(xlstm_lib.slstm_init_state(batch, cfg.d_model, device=device))
+        elif b == "mlstm":
+            E = xlstm_lib._round64(cfg.xlstm.proj_factor_mlstm * cfg.d_model)
+            cache.append(xlstm_lib.mlstm_init_state(batch, cfg.num_heads,
+                                                    E // cfg.num_heads, device=device))
+        else:
+            raise ValueError(b)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -156,15 +179,52 @@ def _attn_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, *, positions,
 
 def _block_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, pos: int, *,
                  positions, cache=None, t=None, build_cache=False):
-    """Returns (x, new_cache)."""
+    """Returns (x, aux_loss, new_cache)."""
+    btype = cfg.layer_pattern[pos]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     xn = layers.rmsnorm_apply(p["norm1"], x, eps=cfg.norm_eps)
-    h, new_cache = _attn_apply(p["attn"], xn, cfg, rcfg, positions=positions,
-                               cache=cache, t=t, build_cache=build_cache)
+    decode = cache is not None
+    want_state = decode or build_cache
+    new_cache = None
+    if btype == "attn":
+        h, new_cache = _attn_apply(p["attn"], xn, cfg, rcfg, positions=positions,
+                                   cache=cache, t=t, build_cache=build_cache)
+    elif btype == "mamba":
+        if want_state:
+            h, ssm, conv = mamba_lib.mamba_apply(
+                p["mamba"], xn, cfg.ssm,
+                ssm_state=cache["ssm"] if decode else None,
+                conv_state=cache["conv"] if decode else None, return_state=True)
+            new_cache = {"ssm": ssm, "conv": conv}
+        else:
+            h = mamba_lib.mamba_apply(p["mamba"], xn, cfg.ssm)
+    elif btype == "slstm":
+        if want_state:
+            h, new_cache = xlstm_lib.slstm_apply(
+                p["cell"], xn, cfg.num_heads, state=cache if decode else None,
+                return_state=True)
+        else:
+            h = xlstm_lib.slstm_apply(p["cell"], xn, cfg.num_heads)
+    elif btype == "mlstm":
+        if want_state:
+            h, new_cache = xlstm_lib.mlstm_apply(
+                p["cell"], xn, cfg.num_heads, cfg.xlstm,
+                state=cache if decode else None, return_state=True)
+        else:
+            h = xlstm_lib.mlstm_apply(p["cell"], xn, cfg.num_heads, cfg.xlstm)
+    else:
+        raise ValueError(btype)
     x = x + h
     if _has_ffn(cfg, pos):
         xn2 = layers.rmsnorm_apply(p["norm2"], x, eps=cfg.norm_eps)
-        x = x + layers.mlp_apply(p["ffn"], xn2)
-    return x, new_cache
+        if _is_moe(cfg, pos):
+            y, aux = moe_lib.moe_apply(p["ffn"], xn2, cfg.moe,
+                                       capacity_factor=rcfg.capacity_factor,
+                                       group_size=rcfg.moe_group_size)
+        else:
+            y = layers.mlp_apply(p["ffn"], xn2)
+        x = x + y
+    return x, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -184,12 +244,13 @@ def _embed_inputs(params, batch, cfg: ArchConfig, rcfg: RunConfig):
 def forward(params, batch, cfg: ArchConfig, rcfg: RunConfig, *,
             cache=None, t=None, build_cache=False, last_only=False):
     """Full forward.  ``cache`` None => prefill/train over (B, S); else a
-    one-step decode at position ``t`` that updates ``cache`` in place.
-    ``build_cache`` makes the full-sequence pass also return the populated
-    per-layer k/v (serving prefill).  ``last_only`` applies the final norm
-    and LM head to the last position only, which is all prefill needs.
-    Returns (logits, aux_loss, new_cache); aux_loss is 0 (no MoE yet)."""
-    check_supported(cfg)
+    one-step decode at position ``t``: attention layers update their k/v
+    in place, recurrent layers return new states.  ``build_cache`` makes
+    the full-sequence pass also return each layer's decode state (serving
+    prefill: k/v over the prompt, the recurrent state after it).
+    ``last_only`` applies the final norm and LM head to the last position
+    only, which is all prefill needs.  Returns (logits, aux_loss,
+    new_cache); aux_loss sums the MoE load-balance losses."""
     x = _embed_inputs(params, batch, cfg, rcfg)
     S = x.shape[1]
     if cache is None:
@@ -198,11 +259,13 @@ def forward(params, batch, cfg: ArchConfig, rcfg: RunConfig, *,
         positions = t + torch.arange(1, device=x.device)
 
     P = len(cfg.layer_pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = [] if (cache is not None or build_cache) else None
     for l, bp in enumerate(params["blocks"]):
         c = cache[l] if cache is not None else None
-        x, nc = _block_apply(bp, x, cfg, rcfg, l % P, positions=positions,
-                             cache=c, t=t, build_cache=build_cache)
+        x, aux_l, nc = _block_apply(bp, x, cfg, rcfg, l % P, positions=positions,
+                                    cache=c, t=t, build_cache=build_cache)
+        aux = aux + aux_l
         if caches is not None:
             caches.append(nc)
 
@@ -210,5 +273,13 @@ def forward(params, batch, cfg: ArchConfig, rcfg: RunConfig, *,
         x = x[:, -1:]
     x = layers.rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
     logits = layers.lm_head_apply(params["lm_head"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, caches
+
+
+def loss_fn(params, batch, cfg: ArchConfig, rcfg: RunConfig):
+    """Next-token cross-entropy on ``batch["labels"]`` (masked by
+    ``batch["mask"]`` when given) plus the weighted MoE aux loss.
+    Returns (loss, {"ce", "moe_aux"})."""
+    logits, aux, _ = forward(params, batch, cfg, rcfg)
+    ce = layers.softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce + rcfg.moe_aux_weight * aux, {"ce": ce, "moe_aux": aux}

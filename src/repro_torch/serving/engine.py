@@ -84,18 +84,26 @@ class ContextPool:
     context (their chunked/shared buffers differ); a released context is
     recycled for the next lease with
     :meth:`ExecutionContext.swap_buffers`.  The streams belong to the
-    pool, not to the pooled contexts: a lease takes a free (stream,
-    copy stream) pair and a release gives it back, so the pool holds as
-    many pairs as requests were ever leased at once (the window, plus
-    runners held for a deferred refinement or a watchdog zombie), each
-    claimed with :func:`~repro_torch.core.backends.base.new_stream`
-    until :meth:`close`, so no two leased contexts share a stream."""
+    pool, not to the pooled contexts: a lease attaches a free (stream,
+    copy stream) pair, and the pair goes back as soon as the request's
+    execution is over (:meth:`detach`, its outputs read back) — not at
+    retire, which may wait behind an earlier request of the same bucket
+    for as long as that one retries.  So the pool holds as many pairs as
+    requests executed at once (the window, plus runners held for a
+    deferred refinement, which :meth:`attach` gives a pair again, or a
+    watchdog zombie), each claimed with
+    :func:`~repro_torch.core.backends.base.new_stream` until
+    :meth:`close`, so no two executing contexts share a stream.
+    ``max_attached`` is the most contexts that held a pair at once (on
+    the CPU too, where the pair is two Nones)."""
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self._free: dict[str, list[ExecutionContext]] = {}
         self._streams: list[tuple] = []  # free (stream, copy_stream) pairs
         self._claimed: list = []         # every stream this pool claimed
+        self._attached: set = set()      # ids of contexts holding a pair
+        self.max_attached = 0
         self.leases = 0
         self.reuses = 0
 
@@ -108,6 +116,11 @@ class ContextPool:
         self._claimed.extend(pair)
         return pair
 
+    def _mark_attached(self, ctx: ExecutionContext) -> ExecutionContext:
+        self._attached.add(id(ctx))
+        self.max_attached = max(self.max_attached, len(self._attached))
+        return ctx
+
     def lease(self, wl, chunked: dict, shared: dict) -> ExecutionContext:
         """A context holding this request's buffers, on a free stream
         pair: the swap re-pins and re-uploads on that stream."""
@@ -118,15 +131,29 @@ class ContextPool:
             self.reuses += 1
             ctx = free.pop()
             ctx.stream, ctx.copy_stream = streams
-            return ctx.swap_buffers(chunked, shared)
-        return ExecutionContext.create(wl.kernel, chunked, shared,
-                                       self.device, streams=streams)
+            return self._mark_attached(ctx.swap_buffers(chunked, shared))
+        return self._mark_attached(ExecutionContext.create(
+            wl.kernel, chunked, shared, self.device, streams=streams))
+
+    def attach(self, ctx: ExecutionContext) -> None:
+        """Give a leased, detached context a free stream pair again (a
+        deferred refinement re-profiles on it)."""
+        if id(ctx) not in self._attached:
+            ctx.stream, ctx.copy_stream = self._take_streams()
+            self._mark_attached(ctx)
+
+    def detach(self, ctx: ExecutionContext) -> None:
+        """``ctx``'s request issues nothing more: its stream pair goes
+        back to the pool while the context waits to retire."""
+        if id(ctx) in self._attached:
+            self._attached.discard(id(ctx))
+            if ctx.stream is not None:
+                self._streams.append((ctx.stream, ctx.copy_stream))
+                ctx.stream = ctx.copy_stream = None
 
     def release(self, name: str, ctx: ExecutionContext) -> None:
         """Recycle ``ctx``; its request is done, so its streams are idle."""
-        if ctx.stream is not None:
-            self._streams.append((ctx.stream, ctx.copy_stream))
-            ctx.stream = ctx.copy_stream = None
+        self.detach(ctx)
         self._free.setdefault(name, []).append(ctx)
 
     def close(self) -> None:
@@ -267,6 +294,7 @@ class ConcurrentScheduler(AdaptiveScheduler):
         while self._deferred_refinements:
             pending, ctx, key, entry = self._deferred_refinements.pop(0)
             try:
+                self.ctx_pool.attach(pending.runner.ctx)
                 super()._refine(pending, ctx, key, entry)
             except Exception:  # noqa: BLE001 — fault barrier
                 if self.resilience is None:
@@ -329,6 +357,9 @@ class ConcurrentScheduler(AdaptiveScheduler):
             p = inflight.pop(fut)
             try:
                 payload = (p, *fut.result())
+                # executed and read back: the streams can serve the next
+                # request while this one waits to retire in bucket order
+                self.ctx_pool.detach(p.runner.ctx)
             # deliberate blanket catch: ANY worker outcome must advance
             # the bucket slot or every later completion hangs
             except BaseException as e:  # noqa: BLE001

@@ -124,6 +124,8 @@ class _Slot:
     conn: object
     pid: Optional[int] = None
     model_tag: Optional[str] = None
+    #: torch intra-op threads the worker reported when ready
+    threads: Optional[int] = None
     respawns: int = 0
     #: un-acked work: token → the router's retained request copy,
     #: insertion == admission order (dicts preserve it) for fair requeue
@@ -152,7 +154,9 @@ class FleetRouter:
     ``dispatch_chunk=None`` (default) enables adaptive dispatch
     coalescing (see :meth:`_chunk_for_depth`); an explicit int pins a
     fixed chunk — tests and experiments that need exact framing opt out
-    of adaptivity.  ``metrics`` (a
+    of adaptivity.  Each worker runs ``worker.intra_op_threads`` torch
+    threads, by default an even share of the host's cores, so N workers
+    do not each start a pool of every core.  ``metrics`` (a
     :class:`~repro_torch.serving.MetricsRegistry`) turns on router-side
     data-plane instrumentation — frame counts/sizes and the per-run
     ``fleet.ipc.overhead_fraction`` gauge.  Use as a context manager,
@@ -217,6 +221,8 @@ class FleetRouter:
         #: so a late replay from a respawned worker is still suppressed
         self._seen: set = set()
         self._kill_plan: Optional[tuple] = None  # (slot_idx, after_n)
+        #: the process a planned kill hit, until its death is handled
+        self._kill_victim = None
         self._started = False
         self._closed = False
 
@@ -237,10 +243,14 @@ class FleetRouter:
         def suffix(path: Optional[str]) -> Optional[str]:
             return f"{path}.w{index}" if path else None
         t = self.worker_template
+        threads = t.intra_op_threads
+        if threads is None:
+            threads = max(1, (os.cpu_count() or 1) // self.n_workers)
         return dataclasses.replace(
             t, worker_id=index,
             telemetry_path=suffix(t.telemetry_path),
-            cache_path=suffix(t.cache_path))
+            cache_path=suffix(t.cache_path),
+            intra_op_threads=threads)
 
     def _spawn(self, index: int, respawns: int = 0) -> _Slot:
         cfg = self._derived_cfg(index)
@@ -276,6 +286,7 @@ class FleetRouter:
                 if msg[0] == "ready":
                     slot.pid = msg[2]
                     slot.model_tag = msg[3]
+                    slot.threads = msg[4]
                     return
                 if msg[0] == "fatal":
                     raise RuntimeError(
@@ -419,6 +430,27 @@ class FleetRouter:
                 # failed in _handle_death — nothing left to wait for
                 break
             wait_any(waitables, timeout=COLLECT_HEARTBEAT_S)
+        self._land_planned_kill()
+
+    def _land_planned_kill(self) -> None:
+        """A planned kill always lands within its ``run()``: a plan still
+        pending once every result is in fires now, and the victim's death
+        is waited out and its seat respawned here, so the run counts the
+        kill, the death and the respawn even when the victim had already
+        returned its whole share (the loop above handles a death only
+        while the victim still owes results)."""
+        if self._kill_plan is not None:
+            self._maybe_fire_kill(force=True)
+        victim, self._kill_victim = self._kill_victim, None
+        if victim is None:
+            return
+        slot = next((s for s in self._slots if s.proc is victim), None)
+        if slot is None or slot.abandoned:
+            return                     # already respawned (or given up)
+        wait_any([victim.sentinel], timeout=self.spawn_timeout_s)
+        victim.join(1.0)
+        self._drain_slot(slot)
+        self._handle_death(slot)
 
     def _drain_slot(self, slot: _Slot) -> bool:
         progressed = False
@@ -495,21 +527,24 @@ class FleetRouter:
     def inject_kill(self, slot_index: int, after_results: int = 1) -> None:
         """Chaos hook for benchmarks/tests: SIGKILL the process in
         ``slot_index`` once ``after_results`` results of the current
-        ``run()`` have been collected fleet-wide.  Counted on
+        ``run()`` have been collected fleet-wide, or once all of them
+        have, whichever comes first; the death is handled and the seat
+        respawned before that ``run()`` returns.  Counted on
         ``stats['injected_kills']`` so harnesses can separate planned
         kills from real crashes."""
         self._kill_plan = (slot_index, after_results)
 
-    def _maybe_fire_kill(self) -> None:
+    def _maybe_fire_kill(self, force: bool = False) -> None:
         if self._kill_plan is None:
             return
         slot_i, after = self._kill_plan
-        if len(self._results) < after:
+        if len(self._results) < after and not force:
             return
         self._kill_plan = None
         slot = self._slots[slot_i]
         if slot.proc.is_alive() and slot.pid:
             os.kill(slot.pid, signal.SIGKILL)
+            self._kill_victim = slot.proc
             self.stats["injected_kills"] += 1
 
     def _handle_death(self, slot: _Slot) -> None:

@@ -11,7 +11,8 @@ element is the message kind:
     ("stop",)                                    graceful shutdown
 
   worker → router (result connection)
-    ("ready", label, pid, model_tag)             startup handshake
+    ("ready", label, pid, model_tag, threads)    startup handshake (threads:
+                                                 torch's intra-op threads)
     ("results", label, version, busy_s, [(token, row), ...])
                                                  one *frame* of terminal
                                                  results (wire v2)

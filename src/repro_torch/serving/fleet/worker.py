@@ -97,6 +97,12 @@ class WorkerConfig:
     #: torch device the worker serves on (a string, so the config stays
     #: picklable); "cuda" gives every worker its own CUDA context
     device: str = "cuda"
+    #: torch intra-op threads of the worker (``torch.set_num_threads``,
+    #: applied before the scheduler is built).  N workers share one host,
+    #: and torch's default pool takes every core in each of them; the
+    #: router fills None with ``max(1, os.cpu_count() // N)``.  None in a
+    #: worker started without a router leaves torch's default
+    intra_op_threads: Optional[int] = None
 
     @property
     def label(self) -> str:
@@ -223,14 +229,18 @@ def worker_main(cfg: WorkerConfig, task_q, conn) -> None:
     spawn re-imports the target by qualified name, so a closure or
     ``__main__`` function would break under pytest and ``-m`` entry
     points).  ``conn`` is the send end of this worker's result pipe."""
+    import torch
+
     label = cfg.label
     wire = resolve_wire_mode(cfg.wire)
     try:
+        if cfg.intra_op_threads is not None:
+            torch.set_num_threads(cfg.intra_op_threads)
         sched, model_tag = _build_scheduler(cfg)
     except BaseException as e:  # noqa: BLE001 — report, then die loudly
         conn.send(("fatal", label, f"{type(e).__name__}: {e}"))
         raise SystemExit(1)
-    conn.send(("ready", label, os.getpid(), model_tag))
+    conn.send(("ready", label, os.getpid(), model_tag, torch.get_num_threads()))
 
     try:
         pending_ctrl = None

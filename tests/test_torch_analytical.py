@@ -18,6 +18,7 @@ from repro.core import analytical as jan
 from repro.core.classifier import KNNClassifier as JaxKNN
 from repro.core.modeling import dataset as jds
 from repro.core.modeling import evaluate as jeval
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 from repro_torch.core.analytical import (ProgramProbe, liu_config,
                                          probe_from_features,
                                          werkhoven_config)

@@ -16,6 +16,7 @@ from repro.core.autotuner import TuningCache as JaxCache
 from repro.core.autotuner import data_signature as jax_signature
 from repro.core.autotuner import shape_bucket as jax_bucket
 from repro.core.workloads import get_workload as jax_workload
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 from repro_torch.core.autotuner import (AutoTuner, TuneResult, TuningCache,
                                         data_signature, quarantine_file,
                                         shape_bucket)

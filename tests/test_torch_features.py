@@ -12,6 +12,7 @@ from repro.core import features as jfeat
 from repro.core.modeling import artifacts as jart
 from repro.core.streams import StreamedRunner as JaxRunner
 from repro.core.workloads import get_workload as jax_workload
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 from repro_torch.core import features as feat
 from repro_torch.core.modeling import artifacts
 from repro_torch.core.streams import StreamedRunner

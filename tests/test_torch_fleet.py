@@ -22,6 +22,7 @@ import sys
 from pathlib import Path
 
 import pytest
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 import torch
 
 from repro.serving import fleet as jfleet
@@ -285,6 +286,21 @@ def test_fleet_respawn_budget_exhaustion_fails_terminally_and_closes():
 def test_worker_config_defaults_to_the_card():
     assert WorkerConfig().device == "cuda"
     assert WorkerConfig().capacity == 1.0
+
+
+@pytest.mark.parametrize("n,threads", [(2, None), (1, 2)])
+def test_spawned_workers_report_their_share_of_the_cores(n, threads):
+    """Each worker sets torch's intra-op pool before it builds its
+    scheduler and reports it in its ready handshake: an even share of the
+    host's cores by default (OMP_NUM_THREADS=1 is set here, so a worker
+    left at torch's default would report 1), or the count asked for."""
+    want = threads if threads else max(1, os.cpu_count() // n)
+    with FleetRouter(n, worker=_cpu(intra_op_threads=threads)) as fr:
+        assert [s.threads for s in fr._slots] == [want] * n
+        reqs = make_trace(["vecadd"], occurrences=2, tenants=2, scale_index=0)
+        fr.submit_all(reqs)
+        assert all(r["status"] in ("served", "degraded") for r in fr.run())
+    assert WorkerConfig().intra_op_threads is None
 
 
 def test_cuda_worker_without_cuda_makes_the_router_raise():

@@ -18,6 +18,7 @@ from repro.serving.fleet import aggregate as jaggregate
 from repro.serving.fleet import wire as jwire
 from repro.serving.telemetry import WIRE_FIELDS as JAX_WIRE_FIELDS
 from repro.serving.telemetry import TelemetrySample as JaxSample
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 from repro_torch.serving import (FleetRouter, WorkerConfig, make_trace,
                                  shard_for)
 from repro_torch.serving.fleet import aggregate as fleet_aggregate
@@ -240,6 +241,40 @@ def test_result_frame_racing_sigkill_loses_and_duplicates_nothing():
         assert fr.stats["worker_deaths"] == 1
         assert fr.stats["worker_respawns"] == 1
     assert fr.summary()["requests"] == len(reqs)
+
+
+def test_kill_after_every_result_still_lands_within_its_run():
+    # after_results=len(reqs): the kill can fire only once every result is
+    # in, when the victim owes nothing.  run() must still count the kill,
+    # the death and the respawn, and lose or double nothing.
+    reqs = make_trace(["vecadd"], occurrences=12, tenants=8, scale_index=0)
+    with FleetRouter(2, worker=_cpu(frame_max=2)) as fr:
+        victim = fr.shard_for("tenant-0")
+        old_pid = fr._slots[victim].pid
+        fr.submit_all(reqs)
+        fr.inject_kill(victim, after_results=len(reqs))
+        results = fr.run()
+
+        assert len(results) == len(reqs)
+        assert len({r["sample"]["trace_id"] for r in results}) == len(reqs)
+        assert all(r["status"] in ("served", "degraded") for r in results)
+        assert fr.stats["injected_kills"] == 1
+        assert fr.stats["worker_deaths"] == 1
+        assert fr.stats["worker_respawns"] == 1
+        assert fr.stats["requeued_requests"] == 0
+        assert fr.stats["duplicate_results"] == 0
+        fresh = fr._slots[victim]
+        assert fresh.pid != old_pid and fresh.proc.is_alive()
+
+        # the respawned seat serves the next run
+        more = make_trace(["vecadd"], occurrences=4, tenants=8,
+                          scale_index=0, seed=5)
+        fr.submit_all(more)
+        again = fr.run()
+        assert len(again) == len(more)
+        assert all(r["status"] in ("served", "degraded") for r in again)
+        assert fr.stats["worker_deaths"] == 1
+    assert fr.summary()["requests"] == len(reqs) + len(more)
 
 
 def test_legacy_wire_end_to_end(tmp_path):

@@ -9,6 +9,7 @@ plain versions on the card by ``chip_smoke.py``.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 import torch
 
 from repro.kernels.ops import flash_attention as jax_flash_attention
@@ -17,7 +18,6 @@ from repro.models.attention import reference_attention as jax_reference_attentio
 from repro_torch.configs.base import get_arch, list_archs
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS
-from repro_torch.models.transformer import check_supported
 
 SHAPES = [
     # B, S, H, KV, hd
@@ -67,10 +67,9 @@ def test_flash_attention_matches_pallas(shape, dtype):
 @pytest.mark.parametrize("arch", list_archs())
 def test_every_served_head_dim_has_a_kernel(arch):
     cfg = get_arch(arch)
-    try:
-        check_supported(cfg)
-    except NotImplementedError:
-        return  # not served by the port yet
+    if "attn" not in cfg.layer_pattern:
+        assert arch == "xlstm-350m"  # recurrent blocks only: no attention kernel
+        return
     assert cfg.head_dim in HEAD_DIMS, (arch, cfg.head_dim)
     assert cfg.reduced().head_dim in HEAD_DIMS, (arch, cfg.reduced().head_dim)
 

@@ -17,6 +17,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 import torch
 
 from repro.core.modeling import dataset as jds

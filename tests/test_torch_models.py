@@ -1,9 +1,10 @@
 """Port model (plain versions on the CPU) against the JAX model.
 
 The JAX parameters are carried over with ``repro_torch.weights
-.params_from_jax``; prefill logits and the populated k/v cache, and three
-teacher-forced decode steps, are compared at the tolerances of
-``tests/test_decode.py``.  Tokens are made with numpy from a seed.
+.params_from_jax``; prefill logits and the populated decode cache (k/v, or
+the recurrent state through ``cache_from_jax``), and three teacher-forced
+decode steps, are compared at the tolerances of ``tests/test_decode.py``.
+Tokens are made with numpy from a seed.
 """
 import dataclasses
 import functools
@@ -12,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 import torch
 
 from repro.configs.base import get_arch as jax_get_arch
@@ -23,14 +25,24 @@ from repro_torch.configs.base import get_arch, list_archs
 from repro_torch.models import attention
 from repro_torch.models.model_zoo import Model, build_model
 from repro_torch.models.transformer import RunConfig, init_params
-from repro_torch.weights import params_from_jax
+from repro_torch.weights import cache_from_jax, params_from_jax
 
-# (arch, num_kv_heads override): reduced yi-9b has 4 heads over 4 KV heads,
-# so the overrides give GQA (G = 2) and MQA (G = 4); starcoder2 has the
-# GELU MLP, pixtral the patch-embedding frontend.
-VARIANTS = [("yi-9b", None), ("yi-9b", 2), ("yi-9b", 1),
-            ("starcoder2-15b", None), ("pixtral-12b", None)]
-IDS = [f"{a}-kv{kv}" if kv else a for a, kv in VARIANTS]
+# (arch, num_kv_heads override, MoE capacity factor): reduced yi-9b has 4
+# heads over 4 KV heads, so the overrides give GQA (G = 2) and MQA (G = 4);
+# starcoder2 has the GELU MLP, pixtral the patch-embedding frontend.  jamba
+# holds mamba blocks and MoE FFNs beside one attention block, xlstm sLSTM
+# and mLSTM blocks, grok and arctic (dense residual) MoE FFNs.  Each MoE
+# arch runs at the default capacity factor, where one-token-per-sequence
+# decode steps drop tokens (C = 1), and at 16, where nothing drops (as
+# tests/test_decode.py runs it).
+VARIANTS = [("yi-9b", None, None), ("yi-9b", 2, None), ("yi-9b", 1, None),
+            ("starcoder2-15b", None, None), ("pixtral-12b", None, None),
+            ("jamba-1.5-large-398b", None, 1.25), ("jamba-1.5-large-398b", None, 16.0),
+            ("xlstm-350m", None, None),
+            ("grok-1-314b", None, 1.25), ("grok-1-314b", None, 16.0),
+            ("arctic-480b", None, 1.25), ("arctic-480b", None, 16.0)]
+IDS = [a + (f"-kv{kv}" if kv else "") + (f"-cf{cf:g}" if cf else "")
+       for a, kv, cf in VARIANTS]
 B, S, EXTRA = 2, 8, 3
 
 
@@ -43,17 +55,38 @@ def _configs(arch, kv):
 
 
 @functools.lru_cache(maxsize=None)
-def _setup(arch, kv):
+def _init(arch, kv):
+    """JAX parameters (they do not depend on the capacity factor)."""
+    jparams, _ = JaxModel(_configs(arch, kv)[0]).init(jax.random.key(0))
+    return jparams, jax.tree.map(np.asarray, jax.device_get(jparams))
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(arch, kv, cf):
     jcfg, tcfg = _configs(arch, kv)
-    jm = JaxModel(jcfg, JaxRunConfig())
-    jparams, _ = jm.init(jax.random.key(0))
-    np_params = jax.tree.map(np.asarray, jax.device_get(jparams))
-    tm = Model(tcfg, RunConfig(), device="cpu")
+    jrcfg, trcfg = ((JaxRunConfig(), RunConfig()) if cf is None else
+                    (JaxRunConfig(capacity_factor=cf), RunConfig(capacity_factor=cf)))
+    jm = JaxModel(jcfg, jrcfg)
+    jparams, np_params = _init(arch, kv)
+    tm = Model(tcfg, trcfg, device="cpu")
     rng = np.random.default_rng(1)
     toks = rng.integers(0, jcfg.vocab_size, (B, S + EXTRA)).astype(np.int32)
     embeds = (rng.standard_normal((B, S + EXTRA, jcfg.frontend_dim), dtype=np.float32)
               if jcfg.frontend else None)
     return jm, jparams, np_params, tm, params_from_jax(np_params, device="cpu"), toks, embeds
+
+
+def _assert_states_match(port_cache, jax_cache, atol, recurrent_only=False):
+    want = cache_from_jax(jax.tree.map(np.asarray, jax.device_get(jax_cache)))
+    assert len(port_cache) == len(want)
+    for l, (got, exp) in enumerate(zip(port_cache, want)):
+        assert got.keys() == exp.keys(), l
+        if recurrent_only and "k" in got:
+            continue
+        for name in got:
+            assert got[name].dtype == exp[name].dtype, (l, name)
+            np.testing.assert_allclose(got[name].numpy(), exp[name].numpy(),
+                                       atol=atol, rtol=0, err_msg=f"layer {l} {name}")
 
 
 def _batches(toks, embeds, lo, hi):
@@ -83,9 +116,9 @@ def test_configs_are_a_faithful_copy(arch):
             == dataclasses.asdict(jax_get_arch(arch).reduced()))
 
 
-@pytest.mark.parametrize("arch,kv", VARIANTS, ids=IDS)
-def test_params_from_jax_copies_every_leaf(arch, kv):
-    _, _, np_params, tm, params, _, _ = _setup(arch, kv)
+@pytest.mark.parametrize("arch,kv,cf", VARIANTS, ids=IDS)
+def test_params_from_jax_copies_every_leaf(arch, kv, cf):
+    _, _, np_params, tm, params, _, _ = _setup(arch, kv, cf)
     cfg = tm.cfg
     assert len(params["blocks"]) == cfg.num_layers
     R = cfg.num_pattern_repeats
@@ -104,9 +137,9 @@ def test_params_from_jax_copies_every_leaf(arch, kv):
         assert fresh[p].shape == conv[p].shape and fresh[p].dtype == conv[p].dtype, p
 
 
-@pytest.mark.parametrize("arch,kv", VARIANTS, ids=IDS)
-def test_prefill_matches_jax(arch, kv):
-    jm, jparams, _, tm, params, toks, embeds = _setup(arch, kv)
+@pytest.mark.parametrize("arch,kv,cf", VARIANTS, ids=IDS)
+def test_prefill_matches_jax(arch, kv, cf):
+    jm, jparams, _, tm, params, toks, embeds = _setup(arch, kv, cf)
     jb, tb = _batches(toks, embeds, 0, S)
     jlogits, jcache = jm.prefill(jparams, jb)
     with torch.inference_mode():
@@ -114,32 +147,27 @@ def test_prefill_matches_jax(arch, kv):
         tfull = tm.forward_logits(params, tb)
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=1e-4, rtol=0)
     np.testing.assert_allclose(tfull[:, -1].numpy(), tlogits.numpy(), atol=1e-5, rtol=0)
-    P = len(tm.cfg.layer_pattern)
-    for l, layer in enumerate(tcache):
-        for kv_name in ("k", "v"):
-            want = np.asarray(jcache[f"pos{l % P}"][kv_name][l // P])
-            np.testing.assert_allclose(layer[kv_name].numpy(), want, atol=1e-4, rtol=0)
+    _assert_states_match(tcache, jcache, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch,kv", VARIANTS, ids=IDS)
-def test_teacher_forced_decode_matches_jax(arch, kv):
-    jm, jparams, _, tm, params, toks, embeds = _setup(arch, kv)
+@pytest.mark.parametrize("arch,kv,cf", VARIANTS, ids=IDS)
+def test_teacher_forced_decode_matches_jax(arch, kv, cf):
+    jm, jparams, _, tm, params, toks, embeds = _setup(arch, kv, cf)
     jb, tb = _batches(toks, embeds, 0, S)
     _, jcache = jm.prefill(jparams, jb)
-    jcache = jax.tree.map(
-        lambda a: jnp.pad(a, ((0, 0), (0, 0), (0, EXTRA), (0, 0), (0, 0))), jcache)
+    jcache = {key: ({n: jnp.pad(a, ((0, 0), (0, 0), (0, EXTRA), (0, 0), (0, 0)))
+                     for n, a in val.items()} if "k" in val else val)
+              for key, val in jcache.items()}
     with torch.inference_mode():
         _, filled = tm.prefill(params, tb)
-        cache = tm.init_cache(B, S + EXTRA)
-        for layer, layer_filled in zip(cache, filled):
-            for kv_name in ("k", "v"):
-                layer[kv_name][:, :S] = layer_filled[kv_name]
+        cache = tm.decode_cache(filled, S + EXTRA)
         for i in range(EXTRA):
             jb, tb = _batches(toks, embeds, S + i, S + i + 1)
             jlogits, jcache = jm.decode_step(jparams, jb, jcache, jnp.int32(S + i))
             tlogits, cache = tm.decode_step(params, tb, cache, S + i)
             np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
                                        atol=1e-3, rtol=0)
+    _assert_states_match(cache, jcache, atol=1e-3, recurrent_only=True)
 
 
 def test_decode_attention_writes_cache_in_place_and_matches_jax():
@@ -182,7 +210,26 @@ def test_init_follows_the_jax_distributions():
     assert 0.9 < p1["embed"]["table"].std().item() < 1.1
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m", "grok-1-314b"])
-def test_unported_blocks_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(arch, reduced=True, device="cpu")
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_arch_builds_prefills_and_decodes_reduced(arch):
+    m = build_model(arch, reduced=True, device="cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, m.cfg.vocab_size, (B, S + 1)).astype(np.int32))
+    batch = {"tokens": toks[:, :S]}
+    step = {"tokens": toks[:, S:]}
+    if m.cfg.frontend:
+        batch["embeds"] = torch.zeros(B, S, m.cfg.frontend_dim)
+        step["embeds"] = torch.zeros(B, 1, m.cfg.frontend_dim)
+    with torch.inference_mode():
+        logits, filled = m.prefill(params, batch)
+        logits2, cache = m.decode_step(params, step, m.decode_cache(filled, S + 1), S)
+    assert logits.shape == logits2.shape == (B, m.cfg.vocab_size)
+    assert torch.isfinite(logits).all() and torch.isfinite(logits2).all()
+    assert len(cache) == m.cfg.num_layers
+
+
+def test_unknown_block_type_raises_value_error():
+    cfg = dataclasses.replace(get_arch("yi-9b").reduced(), layer_pattern=("conv",))
+    with pytest.raises(ValueError, match="conv"):
+        init_params(torch.Generator().manual_seed(0), cfg, RunConfig())

@@ -15,6 +15,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 import torch
 
 from repro.configs.base import get_arch as jax_get_arch
@@ -62,6 +63,17 @@ def test_stablelm_serve_generates_the_jax_tokens():
     assert len(got.outputs) == len(want.outputs) == 5
     for g, w in zip(got.outputs, want.outputs):
         np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m"])
+def test_recurrent_serve_generates_the_jax_tokens(arch):
+    # the recurrent layers hand their prefill state to decode whole
+    want = jax_serve(arch, **SMALL)
+    got = serve(arch, device="cpu", params=params_from_jax(_jax_params(arch=arch)), **SMALL)
+    assert len(got.outputs) == len(want.outputs) == 5
+    for g, w in zip(got.outputs, want.outputs):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert got.logits_finite
 
 
 def test_serve_is_deterministic_in_its_seed():

@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 import torch
 
 from repro.core.autotuner import TuningCache as JaxCache

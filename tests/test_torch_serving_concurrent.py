@@ -20,6 +20,7 @@ import pytest
 from repro.serving import ConcurrentScheduler as JaxEngine
 from repro.serving import DriftDetector as JaxDrift
 from repro.serving import make_trace as jax_make_trace
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 from repro_torch.core.features import extract_features
 from repro_torch.core.stream_config import SINGLE_STREAM, StreamConfig
 from repro_torch.core.streams import StreamedRunner
@@ -212,6 +213,41 @@ def test_context_pool_recycles_and_swaps_buffers():
     np.testing.assert_allclose(_concat(runner.dispatch(StreamConfig(1, 2))),
                                c2["A"] @ s2["v"], rtol=RTOL, atol=ATOL)
     assert pool.lease(wl, c1, s1) is not ctx2      # ctx2 still leased
+
+
+def test_stream_pairs_go_back_when_execution_ends_not_at_retire(monkeypatch):
+    """A slow first dispatch holds its bucket: every later request of the
+    bucket executes and then waits to retire in dispatch order, leased,
+    so the engine leases far more contexts than its window.  Each one's
+    stream pair must go back when its execution ends; held to retire, the
+    pairs of a card run a fault plan through outgrow CUDA's 32 pooled
+    streams and every later request fails."""
+    leased, most = set(), [0]
+    lease, release = ContextPool.lease, ContextPool.release
+
+    def counting_lease(self, *args):
+        ctx = lease(self, *args)
+        leased.add(id(ctx))
+        most[0] = max(most[0], len(leased))
+        return ctx
+
+    def counting_release(self, name, ctx):
+        leased.discard(id(ctx))
+        return release(self, name, ctx)
+
+    monkeypatch.setattr(ContextPool, "lease", counting_lease)
+    monkeypatch.setattr(ContextPool, "release", counting_release)
+    faults = FaultPlan([FaultSpec(site="dispatch", kind="latency", at=(0,),
+                                  delay_s=0.3)])
+    eng = ConcurrentScheduler(_BatchedStub(), window=4, workers=2,
+                              device="cpu", drift=_lenient(), faults=faults)
+    eng.submit_all([_req(seed=0) for _ in range(24)])
+    results = eng.run()
+    assert [r.status for r in results] == ["served"] * 24
+    assert most[0] > eng.window          # the bucket held its completions
+    assert eng.ctx_pool.max_attached <= eng.window
+    assert not leased
+    eng.close()
 
 
 def test_features_traced_while_another_thread_dispatches():

@@ -16,6 +16,7 @@ from repro.serving import FaultSpec as JaxFaultSpec
 from repro.serving import MetricsRegistry as JaxMetricsRegistry
 from repro.serving import TelemetryLog as JaxTelemetryLog
 from repro.serving import traces as jtr
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 from repro_torch.launch import stats
 from repro_torch.launch.stats import read_telemetry, render
 from repro_torch.serving import (FaultPlan, FaultSpec, MetricsRegistry,

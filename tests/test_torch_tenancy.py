@@ -9,6 +9,8 @@ make the JAX package's cold/warm decisions.  The port runs on the CPU
 here.
 """
 import numpy as np
+import pytest
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 import torch
 
 from repro.core.autotuner import TuningCache as JaxCache

@@ -19,6 +19,7 @@ import pytest
 
 from repro.serving import traces as jtr
 from repro.serving.telemetry import TelemetryLog as JaxTelemetryLog
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 from repro_torch.serving import (POLICIES, RequestQueue, WorkloadRequest,
                                  contention_factor)
 from repro_torch.serving.clock import VirtualClock

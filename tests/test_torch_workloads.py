@@ -8,6 +8,7 @@ them on the JAX package.
 import jax
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
 import torch
 
 from repro.core import workloads as jwl
