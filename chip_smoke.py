@@ -22,6 +22,19 @@ On one NVIDIA card (written for an H100) it
    depth cut to fit the card, prefilled at 4 x 512 and decoded 8 tokens,
    each with its launch counts, peak memory, idle share and the time per
    step of its recurrence;
+3c. trains on the card (``repro_torch.launch.train``): builds and reports
+   the two backward kernels (flash attention, RMSNorm), holds each against
+   its plain version at the training shapes, every head dim and widths
+   16-8192 in fp32 and bf16; holds the gradients of reduced stablelm-3b and
+   yi-9b (remat none, full, dots, with exact launch counts) and of
+   stablelm-3b at full width and depth 2 against the CPU; trains the
+   reduced models 8 steps against the CPU and runs the checkpoint resume
+   drill; then ``train_loop`` trains stablelm-3b at full width and depth
+   (2.8 B parameters, fp32, 4 x 512 tokens a step in 2 microbatches, 6
+   steps) with exact launch counts, and prints step time, tokens/s, the
+   share of the fp32 peak, peak memory, one profiled step's idle share and
+   top kernels, and each backward kernel's time against its bounds, its
+   plain version and the library's backward;
 4. times each kernel at the serving shapes against its bounds, its plain
    version and the nearest single PyTorch call (the RMSNorm decode shape
    both per call, host included, and per launch on the device; RMSNorm with
@@ -77,7 +90,7 @@ On one NVIDIA card (written for an H100) it
    ``launch/stats.py``;
 10. prints an ``{"autotune": {...}}`` line, a ``{"serving": {...}}``
    line, ``{"chaos": ...}``, ``{"recurrent_moe": ...}``,
-   ``{"baselines": ...}``, ``{"real_trace": ...}`` and
+   ``{"train": ...}``, ``{"baselines": ...}``, ``{"real_trace": ...}`` and
    ``{"fleet": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, ...}``.
 
@@ -312,8 +325,8 @@ def main() -> int:
     n_req, slots, prompt_len, gen_len = 8, 4, 512, 16
     n_batches = -(-n_req // slots)
     n_forwards = n_batches * gen_len  # one prefill + gen_len - 1 decode steps each
-    want_launches = {"flash_attention": n_batches * cfg.num_layers,
-                     "rmsnorm": n_forwards * (2 * cfg.num_layers + 1)}
+    want_launches = launch_dict(flash_attention=n_batches * cfg.num_layers,
+                                rmsnorm=n_forwards * (2 * cfg.num_layers + 1))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ops.reset_launch_counts()
@@ -340,7 +353,7 @@ def main() -> int:
     # stablelm-3b at full width and depth (head dim 80): one batch.
     B, prompt_len, _, _, _ = SL_ATTN
     n_req, slots, gen_len, layers = B, B, 8, get_arch("stablelm-3b").num_layers
-    want_sl = {"flash_attention": layers, "rmsnorm": gen_len * (2 * layers + 1)}
+    want_sl = launch_dict(flash_attention=layers, rmsnorm=gen_len * (2 * layers + 1))
     ops.reset_launch_counts()
     res = serve("stablelm-3b", reduced=False, n_requests=n_req, batch_slots=slots,
                 prompt_len=prompt_len, gen_len=gen_len, device="cuda")
@@ -362,29 +375,14 @@ def main() -> int:
     for k in path_launches:
         path_launches[k] += recurrent["launches"][k]
 
+    # -- 3c. the training stack ------------------------------------------------
+    train = train_phase(torch, dev, card)
+    for k in path_launches:
+        path_launches[k] += train["launches"][k]
+
     # -- 4. times at the main-path shapes --------------------------------------
     def time_ms(fn, sets, iters=50):
-        """Mean ms per call, cycling through input sets larger than L2: the
-        median of 3 timed loops after 10 warm-up calls."""
-        for i in range(10):
-            fn(*sets[i % len(sets)])
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        loops = []
-        for _ in range(3):
-            start.record()
-            for i in range(iters):
-                fn(*sets[i % len(sets)])
-            end.record()
-            torch.cuda.synchronize()
-            loops.append(start.elapsed_time(end) / iters)
-        return sorted(loops)[1]
-
-    def bound(n_bytes, n_ops, dtype):
-        t_bytes = n_bytes / HBM_BYTES_PER_S
-        t_ops = n_ops / PEAK_OPS_PER_S[dtype]
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+        return cuda_time_ms(torch, fn, sets, iters)
 
     def attn_bounds(B, S, H, KV, hd):
         """The fp32 CUDA-core bound and the 3xTF32 tensor-core bound (3
@@ -467,6 +465,8 @@ def main() -> int:
         max_abs_err=main_err["rmsnorm"], ms=t_kernel, plain_ms=t_plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=t_lib))
 
+    rows.extend(train.pop("rows"))
+
     profile_main_path(torch, dev, build_model, cfg)
 
     # -- 5. the streamed-autotuning loop ---------------------------------------
@@ -491,6 +491,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"chaos": chaos}))
     print(json.dumps({"recurrent_moe": recurrent}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"baselines": baselines}))
     print(json.dumps({"real_trace": real_trace}))
     print(json.dumps({"fleet": fleet}))
@@ -500,6 +501,44 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def cuda_time_ms(torch, fn, sets, iters=50):
+    """Mean ms per call, cycling through input sets larger than L2: the
+    median of 3 timed loops after 10 warm-up calls."""
+    for i in range(10):
+        fn(*sets[i % len(sets)])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    loops = []
+    for _ in range(3):
+        start.record()
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        end.record()
+        torch.cuda.synchronize()
+        loops.append(start.elapsed_time(end) / iters)
+    return sorted(loops)[1]
+
+
+def bound(n_bytes, n_ops, dtype):
+    """The least time (ms) the card could take: bytes over its memory rate
+    or operations over its peak for ``dtype``, the larger, and which."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def launch_dict(**counts):
+    """A full ``ops.launch_counts()`` dict: the given counts, every other
+    kernel 0 (a serving run launches no backward kernel)."""
+    out = {"flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0, "rmsnorm_bwd": 0}
+    for k, n in counts.items():
+        if k not in out:
+            raise KeyError(k)
+        out[k] = n
+    return out
 
 
 def _norms_per_forward(cfg):
@@ -555,7 +594,7 @@ def recurrent_moe_phase(torch, dev, card):
 
     t_phase = time.perf_counter()
     out = {"card": card, "reduced": {}, "full": {}}
-    total = {"flash_attention": 0, "rmsnorm": 0}
+    total = launch_dict()
     failures = []
 
     # -- 1. reduced configs: card against CPU
@@ -638,7 +677,7 @@ def recurrent_moe_phase(torch, dev, card):
     # -- 2. xlstm-350m at full width and depth, through serve
     cfg = get_arch("xlstm-350m")
     G = 16
-    want = {"flash_attention": cfg.attn_layers, "rmsnorm": G * _norms_per_forward(cfg)}
+    want = launch_dict(flash_attention=cfg.attn_layers, rmsnorm=G * _norms_per_forward(cfg))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -674,7 +713,8 @@ def recurrent_moe_phase(torch, dev, card):
         base = get_arch(arch)
         cfg = dataclasses.replace(base, num_layers=depth,
                                   layer_pattern=tuple(base.layer_pattern)[:depth])
-        want = {"flash_attention": cfg.attn_layers, "rmsnorm": G * _norms_per_forward(cfg)}
+        want = launch_dict(flash_attention=cfg.attn_layers,
+                           rmsnorm=G * _norms_per_forward(cfg))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model = Model(cfg, device=dev)
@@ -729,6 +769,523 @@ def recurrent_moe_phase(torch, dev, card):
           f"{out['phase_s']:.1f} s")
     if failures:
         raise SystemExit("recurrent/MoE phase failed:\n  " + "\n  ".join(failures))
+    return out
+
+
+# the training phase: stablelm-3b at full width and depth, 4 x 512 tokens a
+# step in two microbatches, 6 steps; the backward kernels at the shapes of
+# one microbatch (2 x 512 tokens, 32 heads of 80; rows x d_model)
+TRAIN_FULL = dict(batch=4, seq=512, microbatches=2, steps=6)
+TRAIN_ATTN = (2, 512, 32, 32, 80)
+TRAIN_NORM = (1024, 2560)
+# card against CPU: model gradients within the CPU parity tests' atol
+# (tests/test_torch_grads.py); at full width each leaf within 1e-4 of its
+# largest gradient, since a full-width product sums 2560-6912 terms in
+# another order on each side; training losses within 1e-4 relative (10x
+# the CPU parity test's 1e-5: the card sums every product in another order
+# and Adam carries the differences from step to step)
+TRAIN_GRAD_ATOL = 1e-5
+TRAIN_FULL_GRAD_RTOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-4
+
+
+def _copy(tree, device):
+    """A detached copy of a parameter tree on ``device``."""
+    from repro_torch import tree as tree_lib
+
+    return tree_lib.map(lambda p: p.detach().to(device, copy=True), tree)
+
+
+def _loss_and_grads(model, params, batch):
+    """One forward and backward of ``model.loss``: (loss, tree of grads)."""
+    from repro_torch import tree as tree_lib
+
+    for p in tree_lib.leaves(params):
+        p.requires_grad_(True)
+        p.grad = None
+    loss, _ = model.loss(params, batch)
+    loss.backward()
+    return float(loss.detach()), tree_lib.map(lambda p: p.grad, params)
+
+
+def _batch(torch, cfg, batch, seq, step, device):
+    """``SyntheticLM`` batch ``step`` (seed 0) as tensors on ``device``."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    host = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0)).batch_at(step)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()}
+
+
+def _train_losses(torch, cfg, params, device, *, steps, batch, seq, microbatches, ocfg):
+    """Losses of ``steps`` train steps of config ``cfg`` from a copy of
+    ``params`` on ``device``."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.optim import optimizer as opt_lib
+
+    model = Model(cfg, device=device)
+    params = _copy(params, device)
+    state = opt_lib.init_state(params, ocfg)
+    step = make_train_step(model, ocfg, microbatches)
+    losses = []
+    for i in range(steps):
+        params, state, loss, _ = step(params, state,
+                                      _batch(torch, model.cfg, batch, seq, i, device))
+        losses.append(float(loss))
+    return losses
+
+
+def _continued_losses(torch, arch, *, first, then, batch, seq, device, lr=1e-3, seed=0):
+    """Steps ``first`` .. ``then - 1`` of a run that trains ``first`` steps
+    under ``train_loop(steps=first)``'s schedule and goes on in memory, with
+    no checkpoint, under ``train_loop(steps=then)``'s: what ``train_loop``
+    resumed from a checkpoint of step ``first - 1`` must reproduce."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.optim import optimizer as opt_lib
+
+    model = Model(get_arch(arch).reduced(), device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    state, losses = None, []
+    for steps, lo, hi in ((first, 0, first), (then, first, then)):
+        ocfg = opt_lib.AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1), total_steps=steps)
+        state = state or opt_lib.init_state(params, ocfg)
+        step = make_train_step(model, ocfg)
+        for i in range(lo, hi):
+            params, state, loss, _ = step(params, state,
+                                          _batch(torch, model.cfg, batch, seq, i, device))
+            losses.append(float(loss))
+    return losses[first:]
+
+
+def train_phase(torch, dev, card):
+    """The training stack on the card, fp32 (TF32 off), random weights.
+
+    (a) The two backward kernels' build: registers and spills of every
+        instance (ptxas).
+    (b) Both backward kernels against their plain versions on the card:
+        flash attention at the stablelm-3b training shape (2, 512, 32, 32,
+        80), with GQA at (2, 512, 32, 4, 128), and at every head dim on
+        (1, 77, 8, 2, hd), fp32 and bf16, causal, plus a ragged Sq != Sk
+        causal and full; the forward's row log-sum-exp beside them; RMSNorm
+        at rows (2048, 2560), (1024, 4096) and widths 16-8192, fp32 and
+        bf16, with an fp32 and a bf16 scale.  Tolerance: max abs error at
+        most tol * max(1, max |plain|), tol the forward's (attention 2e-5
+        fp32, 2e-2 bf16; RMSNorm 1e-5, 2e-2).
+    (c) Reduced stablelm-3b and yi-9b (over 2 KV heads: GQA), initialised
+        on the CPU and copied to the card: one forward and backward under remat none, full and dots
+        gives every parameter a gradient that is not all zero, each leaf
+        within atol 1e-5 of the CPU's, and exactly the launches the remat
+        mode implies of all four kernels.
+    (d) 8 train steps (2 microbatches) of both reduced models on the card
+        and on the CPU from the same parameters: losses within 1e-4
+        relative.  Then the resume drill: ``train_loop`` to 6 steps with a
+        checkpoint every 3, then to 9 from the checkpoint; steps 6-8 equal
+        (1e-6 relative) an in-memory continuation's.
+    (e) stablelm-3b at full width, depth 2, batch 1 x 512: every gradient
+        leaf of the card within 1e-4 of the leaf's largest CPU gradient.
+    (f) ``train_loop("stablelm-3b", reduced=False, batch=4, seq=512,
+        microbatches=2, steps=6)`` at full width and depth, no checkpoint:
+        finite losses, grad_norm > 0 every step, exact launch counts; the
+        median step time of steps 2-6, tokens/s, 6 N tokens / step time
+        as a share of 67 TFLOP/s, peak memory; one more step under the
+        profiler for its idle share and top kernels; each backward
+        kernel's time at a microbatch's shape beside its bounds, its plain
+        version and the library's backward (SDPA; ``F.rms_norm``) through
+        ``torch.autograd.grad`` on a kept graph.
+
+    Returns the summary with the launches of (f) and the two kernel rows;
+    any failure raises."""
+    import dataclasses
+    import math
+    import re
+    import shutil
+    import statistics
+
+    import torch.nn.functional as F
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import layers
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.optim import optimizer as opt_lib
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "ptxas": {}}
+    failures = []
+
+    # -- (a) the backward kernels' build
+    for name in ("flash_attention_bwd", "rmsnorm_bwd"):
+        log = _build.build_log(name)
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+        if not regs:
+            raise SystemExit(f"train (a): no ptxas report in the build log of {name}")
+        out["ptxas"][name] = dict(instances=len(regs), registers=[min(regs), max(regs)],
+                                  max_spill_store_bytes=max(spills))
+        print(f"train (a): {name}: {len(regs)} kernel instances, {min(regs)}-{max(regs)} "
+              f"registers, spill stores at most {max(spills)} bytes")
+
+    # -- (b) the backward kernels against their plain versions
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def err_of(got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        return err, err / max(1.0, want.float().abs().max().item())
+
+    main_err = {}
+
+    def attn_bwd_case(label, B, Sq, Sk, H, KV, hd, dtype, causal=True):
+        q, k, v = randn((B, Sq, H, hd), dtype), randn((B, Sk, KV, hd), dtype), \
+            randn((B, Sk, KV, hd), dtype)
+        do = randn((B, Sq, H, hd), dtype)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        lse_want = ref.flash_attention_lse_ref(q, k, causal=causal)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[str(dtype).split(".")[1]]
+        errs = [err_of(g, w) for g, w in zip(got, want)]
+        lse_err = err_of(lse, lse_want)
+        ok = (all(s <= tol for _, s in errs) and lse_err[1] <= ATTN_TOL["float32"]
+              and all(g.dtype == t.dtype and g.shape == t.shape
+                      for g, t in zip(got, (q, k, v))))
+        print(f"  flash_attention_bwd {label:30s} {str(dtype):15s} causal={causal!s:5s} "
+              f"max_abs_err dq {errs[0][0]:.2e} dk {errs[1][0]:.2e} dv {errs[2][0]:.2e} "
+              f"(scaled {max(s for _, s in errs):.2e}) lse {lse_err[0]:.2e} tol={tol:g} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash_attention_bwd {label} {dtype}: {errs}, lse {lse_err}")
+        return max(e for e, _ in errs)
+
+    def norm_bwd_case(label, rows, d, dtype, scale_dtype=torch.float32):
+        x, s, dy = randn((rows, d), dtype), randn((d,), scale_dtype), randn((rows, d), dtype)
+        dx, ds = rmsnorm_bwd_cuda(x, s, dy)
+        wdx, wds = ref.rmsnorm_bwd_ref(x, s, dy)
+        torch.cuda.synchronize()
+        tol = NORM_TOL[str(dtype).split(".")[1]]
+        e_dx, e_ds = err_of(dx, wdx), err_of(ds, wds)
+        ok = (e_dx[1] <= tol and e_ds[1] <= NORM_TOL[str(scale_dtype).split(".")[1]]
+              and dx.dtype == dtype and ds.dtype == scale_dtype)
+        print(f"  rmsnorm_bwd {label:30s} {str(dtype):15s} scale {str(scale_dtype):15s} "
+              f"max_abs_err dx {e_dx[0]:.2e} dscale {e_ds[0]:.2e} (scaled "
+              f"{max(e_dx[1], e_ds[1]):.2e}) tol={tol:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"rmsnorm_bwd {label} {dtype}: dx {e_dx}, dscale {e_ds}")
+        return max(e_dx[0], e_ds[0])
+
+    print("train (b): backward kernels against their plain versions:")
+    for dtype in (torch.float32, torch.bfloat16):
+        e = attn_bwd_case(f"stablelm-3b train {TRAIN_ATTN}", *TRAIN_ATTN[:2], TRAIN_ATTN[1],
+                          *TRAIN_ATTN[2:], dtype)
+        if dtype == torch.float32:
+            main_err["flash_attention_bwd"] = e
+        attn_bwd_case("GQA (2, 512, 32, 4, 128)", 2, 512, 512, 32, 4, 128, dtype)
+        for hd in HEAD_DIMS:
+            attn_bwd_case(f"(1, 77, 8, 2, {hd})", 1, 77, 77, 8, 2, hd, dtype)
+    attn_bwd_case("ragged Sq=77 Sk=200", 1, 77, 200, 4, 2, 64, torch.float32)
+    attn_bwd_case("ragged Sq=77 Sk=200", 1, 77, 200, 4, 2, 64, torch.float32, causal=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        e = norm_bwd_case(f"stablelm-3b train {TRAIN_NORM}", *TRAIN_NORM, dtype)
+        if dtype == torch.float32:
+            main_err["rmsnorm_bwd"] = e
+        norm_bwd_case("(2048, 2560)", 2048, 2560, dtype)
+        norm_bwd_case("(1024, 4096)", 1024, 4096, dtype)
+        for d in (16, 32, 100, 1000, 4099, 8192):
+            norm_bwd_case(f"(7, {d})", 7, d, dtype)
+    norm_bwd_case("(64, 2560), bf16 scale", 64, 2560, torch.bfloat16, torch.bfloat16)
+    if failures:
+        raise SystemExit("train (b) failed:\n  " + "\n  ".join(failures))
+
+    # -- (c) reduced models: gradients on the card against the CPU, and the
+    # launches of one forward and backward under each remat mode
+    out["reduced"] = {}
+    # reduced yi-9b keeps 4 of 4 KV heads and so equals reduced stablelm-3b;
+    # over 2 KV heads it keeps yi-9b's grouped queries (GQA, G = 2)
+    for arch, kv in (("stablelm-3b", None), ("yi-9b", 2)):
+        cfg = get_arch(arch).reduced()
+        if kv is not None:
+            cfg = dataclasses.replace(cfg, num_kv_heads=kv)
+            arch = f"{arch} (KV {kv})"
+        L = cfg.num_layers
+        cpu_model = Model(cfg, device="cpu")
+        params_cpu = cpu_model.init(torch.Generator().manual_seed(0))
+        init_cpu = _copy(params_cpu, "cpu")
+        loss_cpu, g_cpu = _loss_and_grads(cpu_model, params_cpu,
+                                          _batch(torch, cfg, 4, 64, 0, "cpu"))
+        want_leaves = tree_lib.leaves(g_cpu)
+        row = {"loss_cpu": loss_cpu}
+        g_none = None
+        for remat in ("none", "full", "dots"):
+            model = Model(cfg, RunConfig(remat=remat), device=dev)
+            params = _copy(init_cpu, dev)
+            ops.reset_launch_counts()
+            loss, grads = _loss_and_grads(model, params, _batch(torch, cfg, 4, 64, 0, dev))
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            f = 1 if remat == "none" else 2  # remat runs each group's forward again
+            want = launch_dict(flash_attention=f * L, flash_attention_bwd=L,
+                               rmsnorm=f * 2 * L + 1, rmsnorm_bwd=2 * L + 1)
+            leaves = tree_lib.leaves(grads)
+            present = all(g is not None and bool(g.abs().max() > 0) for g in leaves)
+            err = max((g.cpu() - w).abs().max().item() for g, w in zip(leaves, want_leaves))
+            same = (g_none is None or max((a - b).abs().max().item() for a, b in
+                                          zip(leaves, tree_lib.leaves(g_none))) <= TRAIN_GRAD_ATOL)
+            g_none = g_none or grads
+            ok = (present and err <= TRAIN_GRAD_ATOL and launches == want and same
+                  and abs(loss - loss_cpu) <= 1e-5 * max(1.0, abs(loss_cpu)))
+            print(f"train (c): reduced {arch} remat={remat}: loss {loss:.6f} (CPU "
+                  f"{loss_cpu:.6f}); {len(leaves)} gradient leaves, all present and nonzero "
+                  f"{present}; max abs err vs CPU {err:.2e} (atol {TRAIN_GRAD_ATOL:g}); equal to "
+                  f"remat none {same}; launches {launches} (expected {want}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            row[remat] = dict(loss=loss, max_abs_err=err, launches=launches)
+            if not ok:
+                failures.append(f"reduced {arch} remat={remat}: present {present}, err "
+                                f"{err:.2e}, launches {launches} vs {want}, same {same}")
+        out["reduced"][arch] = row
+
+        # -- (d) 8 train steps on the card and on the CPU
+        ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=8)
+        kw = dict(steps=8, batch=4, seq=64, microbatches=2, ocfg=ocfg)
+        on_card = _train_losses(torch, cfg, init_cpu, dev, **kw)
+        on_cpu = _train_losses(torch, cfg, init_cpu, "cpu", **kw)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
+        ok = rel <= TRAIN_LOSS_RTOL and all(math.isfinite(x) for x in on_card)
+        print(f"train (d): reduced {arch}, 8 steps of 4 x 64 in 2 microbatches: card "
+              f"losses {[round(x, 6) for x in on_card]}, max rel diff vs CPU {rel:.2e} "
+              f"(tol {TRAIN_LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}")
+        row["train_losses"], row["train_losses_cpu"], row["train_rel_diff"] = \
+            on_card, on_cpu, rel
+        if not ok:
+            failures.append(f"reduced {arch} training: rel diff {rel:.2e}")
+
+    # the resume drill on the card
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke", "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(batch=4, seq=64, ckpt_dir=ckpt_dir, ckpt_every=3, verbose=False, device="cuda")
+    r1 = train_mod.train_loop("stablelm-3b", steps=6, **kw)
+    r2 = train_mod.train_loop("stablelm-3b", steps=9, **kw)
+    cont = _continued_losses(torch, "stablelm-3b", first=6, then=9, batch=4, seq=64,
+                             device=dev)
+    rel = max((abs(a - b) / abs(b) for a, b in zip(r2.losses, cont)), default=float("inf"))
+    ok = (r1.steps_run == 6 and r2.resumed_from == 5 and r2.steps_run == 3
+          and len(r2.losses) == len(cont) and rel <= 1e-6)
+    print(f"train (d): resume drill: 6 steps (checkpoints at steps 2, 5), then to 9: resumed "
+          f"from {r2.resumed_from}, ran {r2.steps_run}; losses {r2.losses} against the "
+          f"in-memory continuation's {cont} (max rel diff {rel:.2e}, bitwise equal "
+          f"{r2.losses == cont}) {'ok' if ok else 'FAIL'}")
+    out["resume"] = dict(resumed_from=r2.resumed_from, steps_run=r2.steps_run,
+                         losses=r2.losses, continued=cont, bitwise=r2.losses == cont)
+    if not ok:
+        failures.append(f"resume drill: resumed {r2.resumed_from}, ran {r2.steps_run}, "
+                        f"rel {rel:.2e}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if failures:
+        raise SystemExit("train (c)-(d) failed:\n  " + "\n  ".join(failures))
+
+    # -- (e) full width, depth 2: every gradient leaf against the CPU
+    cfg = dataclasses.replace(get_arch("stablelm-3b"), num_layers=2)
+    cpu_model = Model(cfg, device="cpu")
+    params_cpu = cpu_model.init(torch.Generator().manual_seed(0))
+    init_dev = _copy(params_cpu, dev)
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = _loss_and_grads(cpu_model, params_cpu, _batch(torch, cfg, 1, 512, 0, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    loss, grads = _loss_and_grads(Model(cfg, device=dev), init_dev,
+                                  _batch(torch, cfg, 1, 512, 0, dev))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = launch_dict(flash_attention=2, flash_attention_bwd=2, rmsnorm=5, rmsnorm_bwd=5)
+    worst, present = 0.0, True
+    for g, w in zip(tree_lib.leaves(grads), tree_lib.leaves(g_cpu)):
+        present &= g is not None and bool(g.abs().max() > 0)
+        worst = max(worst, (g.cpu() - w).abs().max().item()
+                    / max(w.abs().max().item(), 1e-30))
+    n_params = layers.param_count(params_cpu)
+    ok = (present and worst <= TRAIN_FULL_GRAD_RTOL and launches == want
+          and abs(loss - loss_cpu) <= 1e-5 * abs(loss_cpu))
+    print(f"train (e): stablelm-3b full width, depth 2 ({n_params / 1e9:.3f} B parameters), "
+          f"1 x 512: loss {loss:.6f} (CPU {loss_cpu:.6f}, {cpu_s:.1f} s on the CPU); every "
+          f"leaf present and nonzero {present}; worst leaf max abs err / its largest CPU "
+          f"gradient {worst:.2e} (tol {TRAIN_FULL_GRAD_RTOL:g}); launches {launches} "
+          f"(expected {want}) {'ok' if ok else 'FAIL'}")
+    out["full_depth2"] = dict(params=n_params, loss=loss, loss_cpu=loss_cpu,
+                              worst_rel_err=worst, launches=launches)
+    if not ok:
+        failures.append(f"full width depth 2: present {present}, worst {worst:.2e}, "
+                        f"launches {launches}")
+    del params_cpu, g_cpu, init_dev, grads
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("train (e) failed:\n  " + "\n  ".join(failures))
+
+    # -- (f) train_loop at full width and depth
+    cfg = get_arch("stablelm-3b")
+    steps, mb = TRAIN_FULL["steps"], TRAIN_FULL["microbatches"]
+    tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
+    fwd = steps * mb  # forwards and backwards in the run
+    want = launch_dict(flash_attention=fwd * cfg.num_layers,
+                       flash_attention_bwd=fwd * cfg.num_layers,
+                       rmsnorm=fwd * (2 * cfg.num_layers + 1),
+                       rmsnorm_bwd=fwd * (2 * cfg.num_layers + 1))
+    grad_norms, watchdogs = [], []
+    apply_updates, watchdog_cls = opt_lib.apply_updates, train_mod.StragglerWatchdog
+
+    def recording_apply_updates(*a, **kw):
+        res = apply_updates(*a, **kw)
+        grad_norms.append(float(res[2]["grad_norm"]))
+        return res
+
+    class RecordingWatchdog(watchdog_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            watchdogs.append(self)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt_lib.apply_updates, train_mod.StragglerWatchdog = recording_apply_updates, \
+        RecordingWatchdog
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_mod.train_loop("stablelm-3b", reduced=False, device="cuda", verbose=True,
+                                   **TRAIN_FULL)
+        run_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        opt_lib.apply_updates, train_mod.StragglerWatchdog = apply_updates, watchdog_cls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = watchdogs[0].history
+    median_s = statistics.median(step_s[1:])
+    torch.cuda.empty_cache()
+
+    # one more step under the profiler, on parameters of its own
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = layers.param_count(params)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+    state = opt_lib.init_state(params, ocfg)
+    step = train_mod.make_train_step(model, ocfg, mb)
+    batch = _batch(torch, cfg, TRAIN_FULL["batch"], TRAIN_FULL["seq"], 0, dev)
+    step(params, state, batch)
+    _, idle, prof = device_idle(torch, lambda: step(params, state, batch),
+                                os.path.join(ROOT, "build", "chip_smoke", "train_step.json"))
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+    top = [(e.key, dev_us(e) / 1e3, e.count) for e in
+           sorted(kernels, key=dev_us, reverse=True)[:12]]
+    del model, params, state, batch, prof
+    torch.cuda.empty_cache()
+
+    flops = 6 * n_params * tokens
+    share = flops / median_s / PEAK_OPS_PER_S["float32"]
+    finite = all(math.isfinite(x) for x in res.losses)
+    gn_ok = len(grad_norms) == steps and all(math.isfinite(g) and g > 0 for g in grad_norms)
+    ok = res.steps_run == steps and finite and gn_ok and launches == want
+    print(f"train (f): train_loop stablelm-3b full width and depth ({cfg.num_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters), {TRAIN_FULL['batch']} x {TRAIN_FULL['seq']} "
+          f"tokens a step in {mb} microbatches, {steps} steps in {run_s:.1f} s (init "
+          f"included): losses {res.losses}; grad norms {grad_norms}; step s "
+          f"{[round(t, 4) for t in step_s]}; median of steps 2-{steps} {median_s:.4f} s = "
+          f"{tokens / median_s:.1f} tokens/s; 6 N tokens / step time {flops / median_s / 1e12:.2f} "
+          f"TFLOP/s = {share:.3f} of 67 TFLOP/s fp32; peak memory {peak_gb:.2f} GB; launches "
+          f"{launches} (expected {want}) {'ok' if ok else 'FAIL'}; {card}")
+    print(f"  one step under the profiler: {idle_line(idle)}")
+    for key, ms, count in top:
+        print(f"  {ms:9.3f} ms {ms / idle['busy_ms']:6.1%} x{count:<5d} {key[:90]}")
+    out["full"] = dict(params=n_params, losses=res.losses, grad_norms=grad_norms,
+                       step_s=step_s, median_step_s=median_s, tokens_per_s=tokens / median_s,
+                       flops_share_fp32=share, peak_gb=peak_gb, launches=launches,
+                       idle=idle, top_kernels=top, run_s=run_s)
+    if not ok:
+        raise SystemExit(f"train (f) failed: steps {res.steps_run}, finite {finite}, grad "
+                         f"norms {grad_norms}, launches {launches} (expected {want})")
+
+    # -- the backward kernels' times at a microbatch's shapes
+    B, S, H, KV, hd = TRAIN_ATTN
+    sets = []
+    for _ in range(4):
+        q, k, v = randn((B, S, H, hd), torch.float32), randn((B, S, KV, hd), torch.float32), \
+            randn((B, S, KV, hd), torch.float32)
+        o, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        sets.append((q, k, v, o, lse, randn((B, S, H, hd), torch.float32)))
+    t_kernel = cuda_time_ms(torch, lambda *a: flash_attention_bwd_cuda(*a, causal=True),
+                            sets, iters=20)
+    t_plain = cuda_time_ms(torch, lambda *a: ref.flash_attention_bwd_ref(*a, causal=True),
+                           sets, iters=5)
+    graphs = []
+    for q, k, v, _, _, do in sets:
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        graphs.append((F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
+                       (qs, ks, vs), do.transpose(1, 2).contiguous()))
+    t_lib = cuda_time_ms(torch, lambda y, xs, dy: torch.autograd.grad(
+        y, xs, dy, retain_graph=True), graphs, iters=20)
+    del graphs
+    pairs = S * (S + 1) // 2
+    n_ops = 5 * 2 * B * H * hd * pairs  # S, dP, dV, dK, dQ: 5 products
+    n_bytes = 4 * (3 * B * S * H * hd + 2 * B * S * KV * hd + B * H * S  # q, o, dO, k, v, lse
+                   + B * S * H * hd + 2 * B * S * KV * hd)               # dq, dk, dv
+    (c_ms, c_by), (b_ms, b_by) = bound(n_bytes, n_ops, "float32"), \
+        bound(n_bytes, 3 * n_ops, "tf32")
+    print(f"time flash_attention_bwd {TRAIN_ATTN} fp32 causal: kernel {t_kernel:.4f} ms, plain "
+          f"{t_plain:.4f} ms, SDPA backward (autograd.grad) {t_lib:.4f} ms, bound 3xTF32 "
+          f"tensor cores {b_ms:.4f} ms by {b_by}, bound fp32 CUDA cores {c_ms:.4f} ms by {c_by}")
+    rows = [dict(name="flash_attention_bwd", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 replaces="src/repro/kernels/flash_attention.py:123",
+                 gradient_of="flash_attention", launches=launches["flash_attention_bwd"],
+                 max_abs_err=main_err["flash_attention_bwd"], ms=t_kernel, plain_ms=t_plain,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)]
+    del sets
+
+    rows_n, d = TRAIN_NORM
+    sets = [(randn((rows_n, d), torch.float32), randn((d,), torch.float32),
+             randn((rows_n, d), torch.float32)) for _ in range(4)]
+    t_kernel = cuda_time_ms(torch, lambda x, s, dy: rmsnorm_bwd_cuda(x, s, dy), sets)
+    t_plain = cuda_time_ms(torch, lambda x, s, dy: ref.rmsnorm_bwd_ref(x, s, dy), sets)
+    graphs = []
+    for x, s, dy in sets:
+        xs, ss = x.clone().requires_grad_(), s.clone().requires_grad_()
+        graphs.append((F.rms_norm(xs, (d,), weight=ss, eps=1e-5), (xs, ss), dy))
+    t_lib = cuda_time_ms(torch, lambda y, xs, dy: torch.autograd.grad(
+        y, xs, dy, retain_graph=True), graphs)
+    del graphs
+    b_ms, b_by = bound(4 * (3 * rows_n * d + 2 * d), 11 * rows_n * d, "float32")
+    print(f"time rmsnorm_bwd {TRAIN_NORM} fp32: kernel {t_kernel:.4f} ms, plain "
+          f"{t_plain:.4f} ms, F.rms_norm backward (autograd.grad) {t_lib:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}")
+    rows.append(dict(name="rmsnorm_bwd", route="cuda",
+                     source="src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                     replaces="src/repro/kernels/rmsnorm.py:35", gradient_of="rmsnorm",
+                     launches=launches["rmsnorm_bwd"], max_abs_err=main_err["rmsnorm_bwd"],
+                     ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=t_lib))
+    del sets
+    torch.cuda.empty_cache()
+
+    out["launches"] = launches
+    out["rows"] = rows
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"train: phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -1648,13 +2205,17 @@ def fleet_phase(torch, artifact_id):
         return out
 
     def drill(router, n):
-        """SIGKILL the worker of tenant-0 once a quarter of a rep has
-        retired, then serve one more rep: the death is handled and the seat
-        respawned within the killed run, and its un-acked work requeued."""
+        """SIGKILL the worker of tenant-0 as soon as a rep is dispatched,
+        while it owes every request of its shard, then serve one more rep:
+        the death is handled and the seat respawned within the killed run,
+        and its un-acked work requeued.  (A worker returns its whole task
+        message in one result frame, so a kill planned after a quarter of
+        the rep's results found an idle victim, with nothing to requeue,
+        whenever the victim's frame happened to come first.)"""
         victim = shard_for("tenant-0", n)
         base = dict(router.stats)
         router.submit_all(trace())
-        router.inject_kill(victim, after_results=n_requests // 4)
+        router.inject_kill(victim, after_results=0)
         results = router.run()
         gate("SIGKILL drill", results, n)
         in_run = router.stats.get("worker_deaths", 0) - base.get("worker_deaths", 0)

@@ -13,8 +13,8 @@ Built-ins:
                        caching allocator's reuse of retired inputs
   ``host-threads``   — thread-pool task issue with a bounded in-flight
                        window, each pool thread on its own CUDA stream
-
-The JAX package's ``mesh`` train-step backend is not ported yet.
+  ``mesh``           — the microbatched training step (gradient
+                       accumulation into ``.grad``), kind ``train-step``
 
 Adding a backend::
 
@@ -36,6 +36,7 @@ from repro_torch.core.backends.host_pipelined import PipelinedHostBackend
 from repro_torch.core.backends.host_sync import SyncHostBackend
 from repro_torch.core.backends.host_threads import (ThreadedHostBackend,
                                                     WindowedPool)
+from repro_torch.core.backends.mesh import MeshBackend
 
 _BACKENDS: dict[str, StreamBackend] = {}
 
@@ -65,7 +66,8 @@ def get_backend(name: str) -> StreamBackend:
 
 
 def list_backends(kind: str | None = None) -> list[str]:
-    """Sorted names of registered backends, optionally filtered by kind."""
+    """Sorted names of registered backends, optionally filtered by kind
+    (``"runner"`` or ``"train-step"``)."""
     return sorted(n for n, b in _BACKENDS.items()
                   if kind is None or b.kind == kind)
 
@@ -73,11 +75,13 @@ def list_backends(kind: str | None = None) -> list[str]:
 register_backend(SyncHostBackend())
 register_backend(PipelinedHostBackend())
 register_backend(ThreadedHostBackend())
+register_backend(MeshBackend())
 
 __all__ = [
     "ExecutionContext", "StreamBackend", "split_arrays", "to_device",
     "dispatch_plan", "slice_rows", "new_stream", "release_stream", "WindowedPool",
     "SyncHostBackend", "PipelinedHostBackend", "ThreadedHostBackend",
+    "MeshBackend",
     "register_backend", "get_backend", "list_backends",
     "REFERENCE_BACKEND",
 ]

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Union
+from typing import Callable, Union
 
 import numpy as np
 import torch
@@ -251,3 +251,9 @@ def profile_grid_interleaved(runner: StreamedRunner, configs, *,
         for c in configs:
             best[c] = min(best[c], runner.run(c, reps=1, warmed=True))
     return best
+
+
+def streamify_train_step(loss_fn: Callable, config: StreamConfig) -> Callable:
+    """Microbatched grad-accumulation step -- see
+    :meth:`repro_torch.core.backends.mesh.MeshBackend.wrap_train_step`."""
+    return get_backend("mesh").wrap_train_step(loss_fn, config)

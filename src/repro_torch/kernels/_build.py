@@ -24,7 +24,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "flash_attention": CSRC / "flash_attention.cu",
+    "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
     "rmsnorm": CSRC / "rmsnorm.cu",
+    "rmsnorm_bwd": CSRC / "rmsnorm_bwd.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

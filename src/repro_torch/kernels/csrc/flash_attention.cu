@@ -7,6 +7,10 @@
 // running sum, keys at or past Sk masked, output acc / max(l, 1e-30) in the
 // input dtype.  Unlike the TPU kernel it takes ragged Sq and Sk: rows and
 // keys past the end are masked here, so callers need not pad.
+// Optionally (a non-null lse) it also writes each row's log-sum-exp of the
+// scaled, masked scores, (B, H, Sq) in fp32, from which the backward
+// (flash_attention_bwd.cu) recomputes the probabilities; a null lse writes
+// nothing more, so the serving path is unchanged.
 //
 // Bound on an H100: at the serving prefill shape (B=4, S=512, H=32, KV=4,
 // hd=128, causal, fp32) the work is ~8.6 GFLOP against ~75 MB moved, so it
@@ -171,8 +175,8 @@ struct Layout {
 template <typename T, int HD>
 __global__ void __launch_bounds__(Layout<T, HD>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int KV, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Sk, int H, int KV, int causal, float scale) {
   using L = Layout<T, HD>;
   constexpr bool kExact = sizeof(T) == 2;  // bf16: exact in TF32, no lo terms
   constexpr int kNT = HD / 8;              // n-tiles of the accumulator
@@ -396,6 +400,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (f >= n_rows) continue;
     const int head = kvh * G + f % G;
     const float denom = fmaxf(l[h], 1e-30f);
+    // m and l are in the log2 domain and already reduced over the quad.
+    if (lse != nullptr && tig == 0)
+      lse[((long long)b * H + head) * Sq + qpos[h]] = (m[h] + log2f(denom)) * 0.6931471805599453f;
     T* out = o + ((b * (long long)Sq + qpos[h]) * H + head) * HD + 2 * tig;
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
@@ -404,8 +411,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Sk, int H, int KV, int causal, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int B, int Sq, int Sk, int H, int KV, int causal, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = Layout<T, HD>::kBytes;
   auto kernel = flash_fwd_kernel<T, HD>;
@@ -428,7 +435,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((unsigned)(B * KV), (unsigned)n_blocks);
   kernel<<<grid, Layout<T, HD>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KV, causal, scale);
+      static_cast<T*>(o), lse, Sq, Sk, H, KV, causal, scale);
   return cudaGetLastError();
 }
 
@@ -436,15 +443,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
 // 32, 64, 80 (stablelm-3b), 128 and 160 (pixtral-12b).
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                        int B, int Sq, int Sk, int H, int KV, int hd, int causal,
+                        float* lse, int B, int Sq, int Sk, int H, int KV, int hd, int causal,
                         float scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
-    case 160: return launch<T, 160>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, scale, stream);
+    case 160: return launch<T, 160>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -452,7 +459,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Sq, int Sk, int H, int KV,
+                                   void* o, void* lse, int B, int Sq, int Sk, int H, int KV,
                                    int hd, int causal, float scale, int is_bf16,
                                    void* stream) {
   if (KV <= 0 || H % KV != 0 || (long long)Sq * (H / KV) > 0x7fffffffLL)
@@ -460,8 +467,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? dispatch_hd<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd, causal, scale, s)
-              : dispatch_hd<float>(q, k, v, o, B, Sq, Sk, H, KV, hd, causal, scale, s);
+      is_bf16 ? dispatch_hd<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KV, hd, causal, scale, s)
+              : dispatch_hd<float>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KV, hd, causal, scale, s);
   return (int)err;
 }
 

@@ -11,8 +11,11 @@ path serves all ten architectures of ``repro_torch.configs``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
@@ -32,6 +35,7 @@ class RunConfig:
     cache_dtype: torch.dtype = torch.float32
     q_block: int = 512
     kv_block: int = 512
+    remat: str = "none"           # none | full | dots
     capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
     moe_group_size: int = 512
@@ -228,6 +232,55 @@ def _block_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, pos: int, *,
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation (training)
+# ---------------------------------------------------------------------------
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matrix products with no batch dimensions (``mm``,
+    ``addmm``, and ``bmm`` over a batch of one, which is how ``einsum``
+    runs a projection); recompute everything else.  The counterpart of
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    if op in _DOTS or (op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _group_apply(group_params, x, cfg: ArchConfig, rcfg: RunConfig, positions):
+    """One pattern group (``len(cfg.layer_pattern)`` consecutive layers) of
+    the training forward: returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pos, bp in enumerate(group_params):
+        x, aux_l, _ = _block_apply(bp, x, cfg, rcfg, pos, positions=positions)
+        aux = aux + aux_l
+    return x, aux
+
+
+def _remat_layers(blocks, x, cfg: ArchConfig, rcfg: RunConfig, positions):
+    """The layers of a training forward under ``rcfg.remat``, checkpointed
+    per pattern group as the JAX package checkpoints its scanned group:
+    ``full`` keeps only each group's input and recomputes the group in the
+    backward; ``dots`` keeps the matrix products' outputs too.  Under
+    either, the group's kernels run again in the backward."""
+    if rcfg.remat == "full":
+        kw = {}
+    elif rcfg.remat == "dots":
+        kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                              _dots_policy)}
+    else:
+        raise ValueError(f"remat must be none, full or dots; got {rcfg.remat!r}")
+    P = len(cfg.layer_pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g0 in range(0, len(blocks), P):
+        x, aux_g = checkpoint(_group_apply, blocks[g0:g0 + P], x, cfg, rcfg, positions,
+                              use_reentrant=False, **kw)
+        aux = aux + aux_g
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
 # Full model forward
 # ---------------------------------------------------------------------------
 
@@ -261,13 +314,16 @@ def forward(params, batch, cfg: ArchConfig, rcfg: RunConfig, *,
     P = len(cfg.layer_pattern)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = [] if (cache is not None or build_cache) else None
-    for l, bp in enumerate(params["blocks"]):
-        c = cache[l] if cache is not None else None
-        x, aux_l, nc = _block_apply(bp, x, cfg, rcfg, l % P, positions=positions,
-                                    cache=c, t=t, build_cache=build_cache)
-        aux = aux + aux_l
-        if caches is not None:
-            caches.append(nc)
+    if rcfg.remat != "none" and caches is None and torch.is_grad_enabled():
+        x, aux = _remat_layers(params["blocks"], x, cfg, rcfg, positions)
+    else:
+        for l, bp in enumerate(params["blocks"]):
+            c = cache[l] if cache is not None else None
+            x, aux_l, nc = _block_apply(bp, x, cfg, rcfg, l % P, positions=positions,
+                                        cache=c, t=t, build_cache=build_cache)
+            aux = aux + aux_l
+            if caches is not None:
+                caches.append(nc)
 
     if last_only:
         x = x[:, -1:]

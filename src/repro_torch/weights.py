@@ -13,7 +13,8 @@ MoE ``router``/``w_in``/``w_gate``/``w_out``/``dense``, the sLSTM and
 mLSTM ``cell`` dicts), so the conversion is a copy.  The only change of
 shape: the JAX blocks are stacked over pattern repeats R under
 ``blocks["pos{i}"]``; the port lists one dict per layer, layer r*P + i.
-``cache_from_jax`` unstacks a JAX decode cache the same way.
+``cache_from_jax`` unstacks a JAX decode cache the same way, and
+``opt_state_from_jax`` the AdamW moments.
 """
 from __future__ import annotations
 
@@ -48,6 +49,15 @@ def params_from_jax(tree: dict, *, device="cpu") -> dict:
               for k, v in tree.items() if k != "blocks"}
     params["blocks"] = _unstack(tree["blocks"], device)
     return params
+
+
+def opt_state_from_jax(state: dict, *, device="cpu") -> dict:
+    """The port's AdamW state from a JAX one (``step`` and the moments
+    ``m``/``v``, numpy arrays): the moments unstacked as the parameters
+    are; the step a host int32 scalar."""
+    return {"step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32),
+            "m": params_from_jax(state["m"], device=device),
+            "v": params_from_jax(state["v"], device=device)}
 
 
 def cache_from_jax(tree: dict, *, device="cpu") -> list:

@@ -243,6 +243,28 @@ def test_result_frame_racing_sigkill_loses_and_duplicates_nothing():
     assert fr.summary()["requests"] == len(reqs)
 
 
+def test_kill_at_dispatch_requeues_the_victims_whole_shard():
+    # after_results=0, as chip_smoke.py's drill plans it: the kill fires
+    # as the run starts collecting, while the victim owes every request of
+    # its shard, so each is requeued to the respawned seat and served once.
+    reqs = make_trace(["vecadd"], occurrences=12, tenants=8, scale_index=0)
+    with FleetRouter(2, worker=_cpu()) as fr:
+        victim = fr.shard_for("tenant-0")
+        owed = sum(fr.shard_for(r.tenant) == victim for r in reqs)
+        fr.submit_all(reqs)
+        fr.inject_kill(victim, after_results=0)
+        results = fr.run()
+
+        assert len(results) == len(reqs)
+        assert len({r["sample"]["trace_id"] for r in results}) == len(reqs)
+        assert all(r["status"] in ("served", "degraded") for r in results)
+        assert fr.stats["injected_kills"] == 1
+        assert fr.stats["worker_deaths"] == 1
+        assert fr.stats["worker_respawns"] == 1
+        assert fr.stats["requeued_requests"] == owed > 0
+        assert fr.stats["duplicate_results"] == 0
+
+
 def test_kill_after_every_result_still_lands_within_its_run():
     # after_results=len(reqs): the kill can fire only once every result is
     # in, when the victim owes nothing.  run() must still count the kill,

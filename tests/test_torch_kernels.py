@@ -6,6 +6,8 @@ the JAX side runs the Pallas kernels in interpret mode, as
 handed to both.  The CUDA kernels themselves are held against the same
 plain versions on the card by ``chip_smoke.py``.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,6 +74,23 @@ def test_every_served_head_dim_has_a_kernel(arch):
         return
     assert cfg.head_dim in HEAD_DIMS, (arch, cfg.head_dim)
     assert cfg.reduced().head_dim in HEAD_DIMS, (arch, cfg.reduced().head_dim)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_trained_head_dim_has_a_backward_kernel(arch):
+    """The backward kernel is instantiated for every head dim a config
+    reaches, reduced or full, and the wrapper's HEAD_DIMS are exactly the
+    instances of both sources."""
+    cases = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        text = _build.SOURCES[name].read_text()
+        cases[name] = tuple(int(c) for c in re.findall(r"case (\d+): return launch<T, \1>", text))
+    assert cases["flash_attention"] == cases["flash_attention_bwd"] == HEAD_DIMS
+    cfg = get_arch(arch)
+    if "attn" not in cfg.layer_pattern:
+        return  # xlstm-350m: no attention
+    for hd in (cfg.head_dim, cfg.reduced().head_dim):
+        assert hd in cases["flash_attention_bwd"], (arch, hd)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -170,7 +189,8 @@ def test_cpu_path_launches_no_kernel():
     ops.rmsnorm(x, torch.ones(8))
     q = torch.randn(1, 16, 2, 16)
     ops.flash_attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous())
-    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                   "rmsnorm": 0, "rmsnorm_bwd": 0}
 
 
 def test_other_devices_and_bad_blocks_raise():
@@ -214,6 +234,19 @@ def test_flash_wrapper_refuses_what_the_kernel_cannot_take(q, kv, err, match):
         flash_attention_cuda(torch.zeros(q), torch.zeros(kv), torch.zeros(kv))
 
 
+def test_backward_wrappers_refuse_tensors_off_the_card():
+    """A CPU tensor never reaches a backward kernel: the wrappers raise,
+    and only ``kernels.ops``'s Functions take the plain backward."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+    q, kv = torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 1, 32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention_bwd_cuda(q, kv, kv, q, torch.zeros(1, 2, 4), q)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rmsnorm_bwd_cuda(torch.zeros(2, 8), torch.ones(8), torch.zeros(2, 8))
+
+
 def test_build_names_libraries_by_source_and_honours_build_dir(monkeypatch, tmp_path):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     assert _build.build_dir() == tmp_path
@@ -221,10 +254,13 @@ def test_build_names_libraries_by_source_and_honours_build_dir(monkeypatch, tmp_
     assert all(p.parent == tmp_path and p.suffix == ".so" for p in paths.values())
     assert len(set(paths.values())) == len(_build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    entry = {"flash_attention": "flash_attention_fwd", "rmsnorm": "rmsnorm_fwd"}
+    entry = {"flash_attention": "flash_attention_fwd", "rmsnorm": "rmsnorm_fwd",
+             "flash_attention_bwd": "flash_attention_bwd", "rmsnorm_bwd": "rmsnorm_bwd"}
+    assert set(_build.SOURCES) == set(entry)
     for name, src in _build.SOURCES.items():
         text = src.read_text()
-        assert f"src/repro/kernels/{name}.py" in text  # names the TPU kernel
+        # names the TPU kernel it replaces, or whose gradient it computes
+        assert f"src/repro/kernels/{name.removesuffix('_bwd')}.py" in text
         assert f'extern "C" int {entry[name]}(' in text
 
 

@@ -52,7 +52,8 @@ def test_serve_generates_the_jax_tokens():
         np.testing.assert_array_equal(g, np.asarray(w))
     assert got.tokens_generated == want.tokens_generated == 20
     assert got.logits_finite and 0 <= got.prefill_s <= got.wall_s
-    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                   "rmsnorm": 0, "rmsnorm_bwd": 0}
 
 
 def test_stablelm_serve_generates_the_jax_tokens():

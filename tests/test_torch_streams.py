@@ -96,11 +96,12 @@ def test_split_arrays_matches_jax():
 
 
 def test_registry_contents():
-    # the JAX package's runner backends, exactly (its ``mesh`` train-step
-    # backend is not ported yet)
-    assert list_backends() == ["host-pipelined", "host-sync", "host-threads"]
-    assert list_backends() == jax_list_backends(kind="runner")
-    assert list_backends(kind="runner") == list_backends()
+    # the JAX package's backends, exactly: three runners and the ``mesh``
+    # train step
+    assert list_backends(kind="runner") == ["host-pipelined", "host-sync", "host-threads"]
+    assert list_backends(kind="runner") == jax_list_backends(kind="runner")
+    assert list_backends(kind="train-step") == jax_list_backends(kind="train-step") == ["mesh"]
+    assert list_backends() == jax_list_backends()
     assert REFERENCE_BACKEND == "host-sync"
     assert get_backend("host-pipelined").depth == 2
     with pytest.raises(KeyError, match="unknown backend"):
