@@ -102,6 +102,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -408,12 +409,14 @@ def main() -> int:
     rows = []
     attn_sets, sdpa_sets, t_kernel, t_lib, t_plain = time_attn(YI_ATTN, plain=True)
     q0, k0, v0 = attn_sets[0]
+    t_dev, _, _ = device_ms(torch, lambda q, k, v: flash_attention_cuda(q, k, v, causal=True),
+                            attn_sets)
     lib_err = (F.scaled_dot_product_attention(*sdpa_sets[0], is_causal=True, enable_gqa=True)
                .transpose(1, 2) - ref.flash_attention_ref(q0, k0, v0)).abs().max().item()
     del attn_sets, sdpa_sets
     (c_ms, c_by), (b_ms, b_by) = attn_bounds(*YI_ATTN)
-    print(f"time flash_attention {YI_ATTN} fp32 causal: kernel {t_kernel:.4f} ms, "
-          f"plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms (sdpa vs plain "
+    print(f"time flash_attention {YI_ATTN} fp32 causal: kernel {t_kernel:.4f} ms (device "
+          f"{t_dev:.4f} ms a call, profiler), plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms (sdpa vs plain "
           f"max_abs_err {lib_err:.1e}), bound 3xTF32 tensor cores {b_ms:.4f} ms by "
           f"{b_by}, bound fp32 CUDA cores {c_ms:.4f} ms by {c_by}")
     rows.append(dict(
@@ -421,7 +424,7 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:123",
         launches=path_launches["flash_attention"], max_abs_err=main_err["flash_attention"],
-        ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib))
+        ms=t_kernel, device_ms=t_dev, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib))
     for arch, shape in OTHER_ATTN.items():
         _, _, t_k, t_l, _ = time_attn(shape)
         (c_ms, _), (b_ms, _) = attn_bounds(*shape)
@@ -447,22 +450,24 @@ def main() -> int:
         for n in shape:
             numel *= n
         b_ms, b_by = bound(4 * (2 * numel + d), 4 * numel, "float32")
-        norm_times[label] = (t_kernel, t_plain, t_lib, b_ms, b_by)
+        t_dev, _, _ = device_ms(torch, fns["kernel"], sets, iters=100)
+        norm_times[label] = (t_kernel, t_dev, t_plain, t_lib, b_ms, b_by)
         # A copy moves the same bytes (x read, y written): what the card's
         # memory reaches for this mix, beside the bound.
         t_copy = time_ms(lambda x, s: torch.empty_like(x).copy_(x), sets)
         print(f"time rmsnorm {label} {shape} fp32: kernel {t_kernel:.4f} ms (rounds "
-              f"{min(rounds['kernel']):.4f}-{max(rounds['kernel']):.4f}), plain "
+              f"{min(rounds['kernel']):.4f}-{max(rounds['kernel']):.4f}; device {t_dev:.4f} "
+              f"ms a call, profiler), plain "
               f"{t_plain:.4f} ms, F.rms_norm {t_lib:.4f} ms (rounds "
               f"{min(rounds['F.rms_norm']):.4f}-{max(rounds['F.rms_norm']):.4f}), copy of x "
               f"{t_copy:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
     decode_device_us(torch, dev, randn, rmsnorm_cuda, F)
     norm_threads_us(torch)
-    t_kernel, t_plain, t_lib, b_ms, b_by = norm_times["prefill"]
+    t_kernel, t_dev, t_plain, t_lib, b_ms, b_by = norm_times["prefill"]
     rows.append(dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:35", launches=path_launches["rmsnorm"],
-        max_abs_err=main_err["rmsnorm"], ms=t_kernel, plain_ms=t_plain,
+        max_abs_err=main_err["rmsnorm"], ms=t_kernel, device_ms=t_dev, plain_ms=t_plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=t_lib))
 
     rows.extend(train.pop("rows"))
@@ -520,6 +525,70 @@ def cuda_time_ms(torch, fn, sets, iters=50):
         torch.cuda.synchronize()
         loops.append(start.elapsed_time(end) / iters)
     return sorted(loops)[1]
+
+
+def device_ms(torch, fn, sets, iters=20):
+    """Device ms per call of ``fn`` from torch.profiler over ``iters`` calls
+    cycling through ``sets`` after one warm-up call: for every kernel, copy
+    or memset the calls launch, its mean time times its launches per call
+    (its count over ``iters``, rounded: a trace can miss its first event),
+    summed.  Returns the ms, the device ops launched per call and the ms
+    a call by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        raise SystemExit("device_ms: the profiler saw no device work")
+    us, ops, parts = 0.0, 0, {}
+    for e in ev:
+        per_call = max(1, round(e.count / iters))
+        part = (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) \
+            / e.count * per_call
+        us += part
+        ops += per_call
+        name = re.search(r"(\w+)(<|\()", e.key)
+        parts[name.group(1) if name else e.key[:40]] = part / 1e3
+    return us / 1e3, ops, parts
+
+
+def host_us(torch, fn, sets, iters=500):
+    """Host us per call of ``fn``: the time until it returns (the launch
+    enqueued, not run), over ``iters`` calls after a synchronize."""
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def ptxas_instances(log):
+    """ptxas's report (``-Xptxas -v``) by kernel instance: the mangled
+    entry function's registers and spill-store bytes."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict(registers=0, spill_stores=0)
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def bound(n_bytes, n_ops, dtype):
@@ -778,6 +847,11 @@ def recurrent_moe_phase(torch, dev, card):
 TRAIN_FULL = dict(batch=4, seq=512, microbatches=2, steps=6)
 TRAIN_ATTN = (2, 512, 32, 32, 80)
 TRAIN_NORM = (1024, 2560)
+TRAIN_GQA_ATTN = (2, 512, 32, 4, 128)  # yi-9b's attention at the same batch and length
+# the hand-written kernels by their CUDA names, for their share of a step
+OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel",
+               "flash_bwd_dq_kernel", "rmsnorm_kernel", "rmsnorm_bwd_kernel",
+               "rmsnorm_bwd_colsum_kernel")
 # card against CPU: model gradients within the CPU parity tests' atol
 # (tests/test_torch_grads.py); at full width each leaf within 1e-4 of its
 # largest gradient, since a full-width product sums 2560-6912 terms in
@@ -866,7 +940,8 @@ def train_phase(torch, dev, card):
     """The training stack on the card, fp32 (TF32 off), random weights.
 
     (a) The two backward kernels' build: registers and spills of every
-        instance (ptxas).
+        instance (ptxas); the flash-attention backward's instances at head
+        dims 80 and 128 (training, serving) must not spill.
     (b) Both backward kernels against their plain versions on the card:
         flash attention at the stablelm-3b training shape (2, 512, 32, 32,
         80), with GQA at (2, 512, 32, 4, 128), and at every head dim on
@@ -875,7 +950,9 @@ def train_phase(torch, dev, card):
         at rows (2048, 2560), (1024, 4096) and widths 16-8192, fp32 and
         bf16, with an fp32 and a bf16 scale.  Tolerance: max abs error at
         most tol * max(1, max |plain|), tol the forward's (attention 2e-5
-        fp32, 2e-2 bf16; RMSNorm 1e-5, 2e-2).
+        fp32, 2e-2 bf16; RMSNorm 1e-5, 2e-2); and a second call on the same
+        inputs bitwise equal to the first (no atomics: the resume drill's
+        equality rests on it).
     (c) Reduced stablelm-3b and yi-9b (over 2 KV heads: GQA), initialised
         on the CPU and copied to the card: one forward and backward under remat none, full and dots
         gives every parameter a gradient that is not all zero, each leaf
@@ -894,15 +971,16 @@ def train_phase(torch, dev, card):
         median step time of steps 2-6, tokens/s, 6 N tokens / step time
         as a share of 67 TFLOP/s, peak memory; one more step under the
         profiler for its idle share and top kernels; each backward
-        kernel's time at a microbatch's shape beside its bounds, its plain
-        version and the library's backward (SDPA; ``F.rms_norm``) through
+        kernel's time at a microbatch's shape (events around a loop of
+        calls, and the profiler's device time a call over all of the
+        wrapper's launches) beside its bounds, its plain version and the
+        library's backward (SDPA; ``F.rms_norm``) through
         ``torch.autograd.grad`` on a kept graph.
 
     Returns the summary with the launches of (f) and the two kernel rows;
     any failure raises."""
     import dataclasses
     import math
-    import re
     import shutil
     import statistics
 
@@ -926,15 +1004,38 @@ def train_phase(torch, dev, card):
 
     # -- (a) the backward kernels' build
     for name in ("flash_attention_bwd", "rmsnorm_bwd"):
-        log = _build.build_log(name)
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
-        if not regs:
+        insts = ptxas_instances(_build.build_log(name))
+        if not insts:
             raise SystemExit(f"train (a): no ptxas report in the build log of {name}")
-        out["ptxas"][name] = dict(instances=len(regs), registers=[min(regs), max(regs)],
+        regs = [i["registers"] for i in insts.values()]
+        spills = [i["spill_stores"] for i in insts.values()]
+        out["ptxas"][name] = dict(instances=len(insts), registers=[min(regs), max(regs)],
                                   max_spill_store_bytes=max(spills))
-        print(f"train (a): {name}: {len(regs)} kernel instances, {min(regs)}-{max(regs)} "
+        print(f"train (a): {name}: {len(insts)} kernel instances, {min(regs)}-{max(regs)} "
               f"registers, spill stores at most {max(spills)} bytes")
+        if name != "flash_attention_bwd":
+            continue
+        # the attention backward's instances by kernel, dtype and head dim;
+        # the training and serving head dims (80, 128) must not spill
+        gated = []
+        for fn, inst in sorted(insts.items()):
+            m = re.search(r"flash_bwd_(dkdv|dq)_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
+            if not m:
+                continue
+            kind, dtype, hd = m.group(1), "fp32" if m.group(2) == "f" else "bf16", int(m.group(3))
+            must = hd in (80, 128)
+            ok = not must or inst["spill_stores"] == 0
+            print(f"  {kind:4s} {dtype} hd {hd:3d}: {inst['registers']} registers, spill stores "
+                  f"{inst['spill_stores']} bytes" + (f" (gated: 0) {'ok' if ok else 'FAIL'}"
+                                                     if must else ""))
+            gated.append(must)
+            if not ok:
+                failures.append(f"flash_attention_bwd {kind} {dtype} hd {hd} spills "
+                                f"{inst['spill_stores']} bytes")
+        if sum(gated) != 8:  # dkdv and dq, fp32 and bf16, hd 80 and 128
+            failures.append(f"flash_attention_bwd: {sum(gated)} of the 8 gated instances found")
+    if failures:
+        raise SystemExit("train (a) failed:\n  " + "\n  ".join(failures))
 
     # -- (b) the backward kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -954,37 +1055,44 @@ def train_phase(torch, dev, card):
         do = randn((B, Sq, H, hd), dtype)
         o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
         got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
         want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
         lse_want = ref.flash_attention_lse_ref(q, k, causal=causal)
         torch.cuda.synchronize()
         tol = ATTN_TOL[str(dtype).split(".")[1]]
         errs = [err_of(g, w) for g, w in zip(got, want)]
         lse_err = err_of(lse, lse_want)
-        ok = (all(s <= tol for _, s in errs) and lse_err[1] <= ATTN_TOL["float32"]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = (all(s <= tol for _, s in errs) and lse_err[1] <= ATTN_TOL["float32"] and same
               and all(g.dtype == t.dtype and g.shape == t.shape
                       for g, t in zip(got, (q, k, v))))
         print(f"  flash_attention_bwd {label:30s} {str(dtype):15s} causal={causal!s:5s} "
               f"max_abs_err dq {errs[0][0]:.2e} dk {errs[1][0]:.2e} dv {errs[2][0]:.2e} "
-              f"(scaled {max(s for _, s in errs):.2e}) lse {lse_err[0]:.2e} tol={tol:g} "
-              f"{'ok' if ok else 'FAIL'}")
+              f"(scaled {max(s for _, s in errs):.2e}) lse {lse_err[0]:.2e} tol={tol:g}; "
+              f"a second call bitwise equal {same} {'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"flash_attention_bwd {label} {dtype}: {errs}, lse {lse_err}")
+            failures.append(f"flash_attention_bwd {label} {dtype}: {errs}, lse {lse_err}, "
+                            f"bitwise equal {same}")
         return max(e for e, _ in errs)
 
     def norm_bwd_case(label, rows, d, dtype, scale_dtype=torch.float32):
         x, s, dy = randn((rows, d), dtype), randn((d,), scale_dtype), randn((rows, d), dtype)
         dx, ds = rmsnorm_bwd_cuda(x, s, dy)
+        dx2, ds2 = rmsnorm_bwd_cuda(x, s, dy)
         wdx, wds = ref.rmsnorm_bwd_ref(x, s, dy)
         torch.cuda.synchronize()
         tol = NORM_TOL[str(dtype).split(".")[1]]
         e_dx, e_ds = err_of(dx, wdx), err_of(ds, wds)
+        same = torch.equal(dx, dx2) and torch.equal(ds, ds2)
         ok = (e_dx[1] <= tol and e_ds[1] <= NORM_TOL[str(scale_dtype).split(".")[1]]
-              and dx.dtype == dtype and ds.dtype == scale_dtype)
+              and same and dx.dtype == dtype and ds.dtype == scale_dtype)
         print(f"  rmsnorm_bwd {label:30s} {str(dtype):15s} scale {str(scale_dtype):15s} "
               f"max_abs_err dx {e_dx[0]:.2e} dscale {e_ds[0]:.2e} (scaled "
-              f"{max(e_dx[1], e_ds[1]):.2e}) tol={tol:g} {'ok' if ok else 'FAIL'}")
+              f"{max(e_dx[1], e_ds[1]):.2e}) tol={tol:g}; a second call bitwise equal {same} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"rmsnorm_bwd {label} {dtype}: dx {e_dx}, dscale {e_ds}")
+            failures.append(f"rmsnorm_bwd {label} {dtype}: dx {e_dx}, dscale {e_ds}, "
+                            f"bitwise equal {same}")
         return max(e_dx[0], e_ds[0])
 
     print("train (b): backward kernels against their plain versions:")
@@ -1193,6 +1301,12 @@ def train_phase(torch, dev, card):
 
     top = [(e.key, dev_us(e) / 1e3, e.count) for e in
            sorted(kernels, key=dev_us, reverse=True)[:12]]
+    own = {}  # the port's hand-written kernels in the step, ms and launches
+    for e in kernels:
+        for name in OWN_KERNELS:
+            if f"{name}<" in e.key:
+                ms, n = own.get(name, (0.0, 0))
+                own[name] = (ms + dev_us(e) / 1e3, n + e.count)
     del model, params, state, batch, prof
     torch.cuda.empty_cache()
 
@@ -1212,10 +1326,13 @@ def train_phase(torch, dev, card):
     print(f"  one step under the profiler: {idle_line(idle)}")
     for key, ms, count in top:
         print(f"  {ms:9.3f} ms {ms / idle['busy_ms']:6.1%} x{count:<5d} {key[:90]}")
+    print("  the port's kernels in the step: " + ", ".join(
+        f"{name} {ms:.3f} ms ({ms / idle['busy_ms']:.1%}, x{n})"
+        for name, (ms, n) in own.items()))
     out["full"] = dict(params=n_params, losses=res.losses, grad_norms=grad_norms,
                        step_s=step_s, median_step_s=median_s, tokens_per_s=tokens / median_s,
                        flops_share_fp32=share, peak_gb=peak_gb, launches=launches,
-                       idle=idle, top_kernels=top, run_s=run_s)
+                       idle=idle, top_kernels=top, own_kernels=own, run_s=run_s)
     if not ok:
         raise SystemExit(f"train (f) failed: steps {res.steps_run}, finite {finite}, grad "
                          f"norms {grad_norms}, launches {launches} (expected {want})")
@@ -1230,6 +1347,9 @@ def train_phase(torch, dev, card):
         sets.append((q, k, v, o, lse, randn((B, S, H, hd), torch.float32)))
     t_kernel = cuda_time_ms(torch, lambda *a: flash_attention_bwd_cuda(*a, causal=True),
                             sets, iters=20)
+    t_dev, n_dev, parts = device_ms(torch, lambda *a: flash_attention_bwd_cuda(*a, causal=True),
+                                    sets)
+    by_kernel = ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
     t_plain = cuda_time_ms(torch, lambda *a: ref.flash_attention_bwd_ref(*a, causal=True),
                            sets, iters=5)
     graphs = []
@@ -1246,39 +1366,93 @@ def train_phase(torch, dev, card):
                    + B * S * H * hd + 2 * B * S * KV * hd)               # dq, dk, dv
     (c_ms, c_by), (b_ms, b_by) = bound(n_bytes, n_ops, "float32"), \
         bound(n_bytes, 3 * n_ops, "tf32")
-    print(f"time flash_attention_bwd {TRAIN_ATTN} fp32 causal: kernel {t_kernel:.4f} ms, plain "
-          f"{t_plain:.4f} ms, SDPA backward (autograd.grad) {t_lib:.4f} ms, bound 3xTF32 "
-          f"tensor cores {b_ms:.4f} ms by {b_by}, bound fp32 CUDA cores {c_ms:.4f} ms by {c_by}")
+    print(f"time flash_attention_bwd {TRAIN_ATTN} fp32 causal: kernel {t_kernel:.4f} ms "
+          f"(device {t_dev:.4f} ms a call over its {n_dev} launches, profiler: {by_kernel}), "
+          f"plain {t_plain:.4f} ms, SDPA backward (autograd.grad) {t_lib:.4f} ms, bound 3xTF32 "
+          f"tensor cores {b_ms:.4f} ms by {b_by} (the 7 products executed: "
+          f"{b_ms * 7 / 5:.4f} ms), bound fp32 CUDA cores {c_ms:.4f} ms by {c_by}")
     rows = [dict(name="flash_attention_bwd", route="cuda",
                  source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                  replaces="src/repro/kernels/flash_attention.py:123",
                  gradient_of="flash_attention", launches=launches["flash_attention_bwd"],
-                 max_abs_err=main_err["flash_attention_bwd"], ms=t_kernel, plain_ms=t_plain,
-                 bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)]
+                 max_abs_err=main_err["flash_attention_bwd"], ms=t_kernel, device_ms=t_dev,
+                 plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)]
     del sets
+    # the same shape in bf16: 2 products where fp32 takes 3, 1 where both
+    # operands are bf16 (S, dP): 10 products' worth against fp32's 21
+    sets = []
+    for _ in range(4):
+        q, k, v = (randn((B, S, n, hd), torch.bfloat16) for n in (H, KV, KV))
+        o, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        sets.append((q, k, v, o, lse, randn((B, S, H, hd), torch.bfloat16)))
+    t_bf16 = cuda_time_ms(torch, lambda *a: flash_attention_bwd_cuda(*a, causal=True), sets,
+                          iters=20)
+    t_bf16_dev, _, _ = device_ms(torch, lambda *a: flash_attention_bwd_cuda(*a, causal=True),
+                                 sets)
+    del sets
+    print(f"time flash_attention_bwd {TRAIN_ATTN} bf16 causal: kernel {t_bf16:.4f} ms (device "
+          f"{t_bf16_dev:.4f} ms a call)")
+    out["bf16_bwd"] = dict(ms=t_bf16, device_ms=t_bf16_dev)
+    # off the main path: yi-9b's grouped queries (G = 8), where B * KV * S / 64
+    # = 64 dK/dV key blocks would share 132 SMs, each over G * S = 4096
+    # folded rows: the kernel splits each one's rows between 5 blocks
+    B, S, H, KV, hd = TRAIN_GQA_ATTN
+    sets = []
+    for _ in range(4):
+        q, k, v = randn((B, S, H, hd), torch.float32), randn((B, S, KV, hd), torch.float32), \
+            randn((B, S, KV, hd), torch.float32)
+        o, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        sets.append((q, k, v, o, lse, randn((B, S, H, hd), torch.float32)))
+    t_gqa = cuda_time_ms(torch, lambda *a: flash_attention_bwd_cuda(*a, causal=True), sets,
+                         iters=20)
+    graphs = []
+    for q, k, v, _, _, do in sets:
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        graphs.append((F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                      enable_gqa=True),
+                       (qs, ks, vs), do.transpose(1, 2).contiguous()))
+    t_gqa_lib = cuda_time_ms(torch, lambda y, xs, dy: torch.autograd.grad(
+        y, xs, dy, retain_graph=True), graphs, iters=20)
+    del graphs, sets
+    print(f"time flash_attention_bwd yi-9b GQA {TRAIN_GQA_ATTN} fp32 causal (off the main "
+          f"path): kernel {t_gqa:.4f} ms, SDPA backward (autograd.grad) {t_gqa_lib:.4f} ms")
+    out["gqa_bwd"] = dict(shape=TRAIN_GQA_ATTN, ms=t_gqa, library_ms=t_gqa_lib)
 
     rows_n, d = TRAIN_NORM
     sets = [(randn((rows_n, d), torch.float32), randn((d,), torch.float32),
              randn((rows_n, d), torch.float32)) for _ in range(4)]
     t_kernel = cuda_time_ms(torch, lambda x, s, dy: rmsnorm_bwd_cuda(x, s, dy), sets)
+    t_host = host_us(torch, lambda x, s, dy: rmsnorm_bwd_cuda(x, s, dy), sets)
+    t_dev, n_dev, parts = device_ms(torch, lambda x, s, dy: rmsnorm_bwd_cuda(x, s, dy), sets,
+                                    iters=100)
+    by_kernel = ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
     t_plain = cuda_time_ms(torch, lambda x, s, dy: ref.rmsnorm_bwd_ref(x, s, dy), sets)
     graphs = []
     for x, s, dy in sets:
         xs, ss = x.clone().requires_grad_(), s.clone().requires_grad_()
         graphs.append((F.rms_norm(xs, (d,), weight=ss, eps=1e-5), (xs, ss), dy))
-    t_lib = cuda_time_ms(torch, lambda y, xs, dy: torch.autograd.grad(
-        y, xs, dy, retain_graph=True), graphs)
+
+    def lib_grad(y, xs, dy):
+        return torch.autograd.grad(y, xs, dy, retain_graph=True)
+
+    t_lib = cuda_time_ms(torch, lib_grad, graphs)
+    t_lib_host = host_us(torch, lib_grad, graphs)
+    t_lib_dev, n_lib_dev, _ = device_ms(torch, lib_grad, graphs, iters=100)
     del graphs
     b_ms, b_by = bound(4 * (3 * rows_n * d + 2 * d), 11 * rows_n * d, "float32")
-    print(f"time rmsnorm_bwd {TRAIN_NORM} fp32: kernel {t_kernel:.4f} ms, plain "
-          f"{t_plain:.4f} ms, F.rms_norm backward (autograd.grad) {t_lib:.4f} ms, bound "
-          f"{b_ms:.4f} ms by {b_by}")
+    print(f"time rmsnorm_bwd {TRAIN_NORM} fp32: kernel {t_kernel:.4f} ms (device "
+          f"{t_dev:.4f} ms a call over its {n_dev} launches, profiler: {by_kernel}; host "
+          f"{t_host:.1f} us a call), plain {t_plain:.4f} ms, F.rms_norm backward "
+          f"(autograd.grad) {t_lib:.4f} ms "
+          f"(device {t_lib_dev:.4f} ms over {n_lib_dev} device ops; host {t_lib_host:.1f} us), "
+          f"bound {b_ms:.4f} ms by {b_by}")
     rows.append(dict(name="rmsnorm_bwd", route="cuda",
                      source="src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                      replaces="src/repro/kernels/rmsnorm.py:35", gradient_of="rmsnorm",
                      launches=launches["rmsnorm_bwd"], max_abs_err=main_err["rmsnorm_bwd"],
-                     ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=t_lib))
+                     ms=t_kernel, device_ms=t_dev, host_us=t_host, plain_ms=t_plain,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
+                     library_device_ms=t_lib_dev))
     del sets
     torch.cuda.empty_cache()
 

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  All missing libraries are built together, one ``nvcc`` process
 per source.  Libraries land in ``<repo>/build/kernels/`` (or
-``$REPRO_TORCH_BUILD_DIR``), named by a hash of their source and flags, so
-an edited source is rebuilt and a stale library is never loaded.  A failed
+``$REPRO_TORCH_BUILD_DIR``), named by a hash of their source, the headers
+they may include (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  A failed
 build raises with the compiler's output; nothing falls back to the plain
 PyTorch version.
 """
@@ -54,9 +55,17 @@ def _nvcc() -> str:
                        "(put the CUDA toolkit's bin/ on PATH or set CUDA_HOME)")
 
 
+def headers() -> list[Path]:
+    """The shared headers in ``csrc/``, which any source may include."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path(name: str) -> Path:
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in headers():
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -80,7 +89,7 @@ def build_all() -> list[str]:
     for n in todo:
         lib = library_path(n)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(SOURCES[n])]
         procs[n] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []

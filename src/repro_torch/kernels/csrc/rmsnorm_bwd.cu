@@ -12,22 +12,27 @@
 // dx in x's dtype, dscale in the scale parameter's dtype (fp32 or bf16).
 //
 // Bound on an H100: by bytes.  It reads x and dy and writes dx once, 3
-// element accesses against ~10 operations per element, far below the card's
+// element accesses against ~11 operations per element, far below the card's
 // ~20 operations per byte; at the stablelm-3b training shape (1024 rows x
 // 2560, fp32) that is ~31 MB, ~9.4 us at 3.35 TB/s.
 //
 // Design:
-//   * dx: as the forward, one row at a time per block, each thread holding
-//     up to 16 values of x and dy in registers (16-byte accesses, or scalar
-//     ones for a width or pointer off the vector grid), so each is read from
-//     device memory once; the row's two sums (x^2 and dy*s*x) are reduced
-//     together with warp shuffles and one pass through shared memory.
-//   * dscale: a block walks rows blockIdx.x, blockIdx.x + gridDim.x, ... and
-//     keeps its columns' partial sums in registers, then writes them as one
-//     fp32 row of a (blocks, d) scratch; a second kernel sums each column of
-//     the scratch in block order.  No atomics, so the result is
-//     deterministic.  The wrapper picks the number of blocks (4 per SM, at
-//     most one per row), so the scratch is small beside x.
+//   * dx: as the forward, each thread holds up to 16 values of x and dy of
+//     a row in registers (16-byte accesses, or scalar ones for a width or
+//     pointer off the vector grid), so each is read from device memory once;
+//     the row's two sums (x^2 and dy*s*x) are reduced together with warp
+//     shuffles and one pass through shared memory.
+//   * A block walks a contiguous run of rows, and loads its next row while
+//     it reduces and writes the current one, so each thread keeps two rows'
+//     loads in flight.  The wrapper launches two blocks per SM (at most one
+//     per row): ~40 KB of loads in flight per SM at the training shape.
+//   * dscale: each block keeps its columns' sums over its rows in registers
+//     and writes them as one fp32 row of a (blocks, d) scratch, 2.7 MB at
+//     the training shape (264 blocks).  A second kernel sums the scratch's
+//     columns with every SM taking part: a block of 256 threads takes 16
+//     columns, 16 threads a column each sum every 16th scratch row in row
+//     order, and a fixed tree in shared memory adds their 16 sums (160
+//     blocks at d = 2560).  No atomics, so the result is deterministic.
 //
 // Interface: plain C, loaded with ctypes.  The kernels launch on the
 // caller's stream and allocate nothing (the caller passes the scratch), and
@@ -40,10 +45,10 @@
 
 namespace {
 
-// At most 16 values per thread in each of four register arrays (x, dy,
-// scale and the dscale sums) cover d <= 8192 with 512 threads; a bound of
-// 512 threads lets the compiler give each thread 128 registers, where 1024
-// (64 registers) made the 16-value instances spill.
+// At most 16 values per thread in each of six register arrays (x and dy of
+// this row and of the next, scale and the dscale sums) cover d <= 8192 with
+// 512 threads; a bound of 512 threads lets the compiler give each thread 128
+// registers, where 1024 (64 registers) made the 16-value instances spill.
 constexpr int kMaxThreads = 512;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -86,24 +91,35 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   __shared__ float2 warp_sums[kMaxThreads / 32];
   __shared__ float2 total;
   const int n_warps = (blockDim.x + 31) / 32;
-  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
-    const XV* xr = reinterpret_cast<const XV*>(x + row * d);
-    const XV* gr = reinterpret_cast<const XV*>(dy + row * d);
+  // This block's rows, and the next row's values loaded ahead.
+  const long long r_end = rows * (blockIdx.x + 1) / gridDim.x;
+  long long row = rows * blockIdx.x / gridDim.x;
+  XV xn[VPT] = {}, gn[VPT] = {};
+  auto load_row = [&](long long r) {
+    const XV* xr = reinterpret_cast<const XV*>(x + r * d);
+    const XV* gr = reinterpret_cast<const XV*>(dy + r * d);
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int c = tid + i * blockDim.x;
+      if (c < n_vec) xn[i] = xr[c], gn[i] = gr[c];
+    }
+  };
+  if (row < r_end) load_row(row);
+  for (; row < r_end; ++row) {
     float xv[VPT][VEC], gv[VPT][VEC];
     float ss = 0.f, dot = 0.f;
 #pragma unroll
     for (int i = 0; i < VPT; ++i) {
       const int c = tid + i * blockDim.x;
-      XV a = {}, g = {};
-      if (c < n_vec) a = xr[c], g = gr[c];
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        xv[i][j] = c < n_vec ? to_float(a.v[j]) : 0.f;
-        gv[i][j] = c < n_vec ? to_float(g.v[j]) : 0.f;
+        xv[i][j] = c < n_vec ? to_float(xn[i].v[j]) : 0.f;
+        gv[i][j] = c < n_vec ? to_float(gn[i].v[j]) : 0.f;
         ss = fmaf(xv[i][j], xv[i][j], ss);
         dot = fmaf(gv[i][j] * s[i][j], xv[i][j], dot);
       }
     }
+    if (row + 1 < r_end) load_row(row + 1);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       ss += __shfl_xor_sync(0xffffffffu, ss, off);
@@ -153,15 +169,29 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-// dscale[c] = sum over the scratch's rows, in row order, of partial[p][c].
+// dscale[c] = sum over the scratch's rows of partial[p][c], in a fixed
+// order: thread (c, gy) of a block sums rows gy, gy + kGroups, ... in row
+// order, and a fixed tree in shared memory adds the kGroups sums.
+constexpr int kCols = 16, kGroups = 16;  // columns and row groups of a block
+
 template <typename S>
-__global__ void rmsnorm_bwd_colsum_kernel(const float* __restrict__ partial, int n_parts,
-                                          int d, S* __restrict__ dscale) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d) return;
+__global__ void __launch_bounds__(kCols * kGroups)
+rmsnorm_bwd_colsum_kernel(const float* __restrict__ partial, int n_parts, int d,
+                          S* __restrict__ dscale) {
+  __shared__ float sums[kGroups][kCols + 1];
+  const int cx = threadIdx.x % kCols, gy = threadIdx.x / kCols;
+  const int c = blockIdx.x * kCols + cx;
   float acc = 0.f;
-  for (int p = 0; p < n_parts; ++p) acc += partial[(long long)p * d + c];
-  dscale[c] = from_float<S>(acc);
+  if (c < d)
+    for (int p = gy; p < n_parts; p += kGroups) acc += partial[(long long)p * d + c];
+  sums[gy][cx] = acc;
+  __syncthreads();
+#pragma unroll
+  for (int half = kGroups / 2; half > 0; half >>= 1) {
+    if (gy < half) sums[gy][cx] += sums[gy + half][cx];
+    __syncthreads();
+  }
+  if (gy == 0 && c < d) dscale[c] = from_float<S>(sums[0][cx]);
 }
 
 template <typename T, int VEC, int VPT>
@@ -226,13 +256,12 @@ extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, voi
       is_bf16 ? dispatch<__nv_bfloat16>(x, sc, dy, dx, part, n_parts, rows, d, eps, s)
               : dispatch<float>(x, sc, dy, dx, part, n_parts, rows, d, eps, s);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((d + threads - 1) / threads);
+  const unsigned blocks = (unsigned)((d + kCols - 1) / kCols);
   if (scale_is_bf16)
-    rmsnorm_bwd_colsum_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+    rmsnorm_bwd_colsum_kernel<__nv_bfloat16><<<blocks, kCols * kGroups, 0, s>>>(
         part, n_parts, d, static_cast<__nv_bfloat16*>(dscale));
   else
-    rmsnorm_bwd_colsum_kernel<float><<<blocks, threads, 0, s>>>(
+    rmsnorm_bwd_colsum_kernel<float><<<blocks, kCols * kGroups, 0, s>>>(
         part, n_parts, d, static_cast<float*>(dscale));
   return (int)cudaGetLastError();
 }

@@ -46,6 +46,8 @@ def _load_bwd() -> ctypes.CDLL:
     lib.flash_attention_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_scratch.argtypes = [ctypes.c_int] * 6
+    lib.flash_attention_bwd_scratch.restype = ctypes.c_longlong
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     _bwd_lib = lib
@@ -131,8 +133,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # dk and dv stay zero where no query row exists to write them
     dk = torch.empty_like(k) if Sq else torch.zeros_like(k)
     dv = torch.empty_like(v) if Sq else torch.zeros_like(v)
-    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)  # rowsum(dO*O)
     lib = _bwd_lib or _load_bwd()
+    # rowsum(dO*O), then the dK/dV kernel's partial sums where it splits rows
+    D = torch.empty(lib.flash_attention_bwd_scratch(B, Sq, Sk, H, KV, hd),
+                    dtype=torch.float32, device=q.device)
     err = _build.call_on_stream(
         q.device.index, lib.flash_attention_bwd,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),

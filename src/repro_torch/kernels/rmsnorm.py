@@ -118,15 +118,20 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     if rows == 0:
         return dx, torch.zeros_like(scale)
     # dscale is written as fp32 or bf16; any other parameter dtype gets the
-    # fp32 sums cast.
+    # fp32 sums cast.  As in the forward, scale is converted only when it is
+    # not fp32 and contiguous already.
     out_dtype = scale.dtype if scale.dtype in _DTYPE_CODE else torch.float32
     dscale = torch.empty(d, dtype=out_dtype, device=device)
-    scale32 = scale.to(torch.float32).contiguous()
+    scale32 = scale
+    if scale.dtype != torch.float32 or not scale.is_contiguous():
+        scale32 = scale.to(torch.float32).contiguous()
     sms = _SMS.get(device.index)
     if sms is None:
         sms = _SMS[device.index] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    n_parts = min(rows, 4 * sms)
+    # two blocks per SM, each over a contiguous run of rows, each writing one
+    # row of partial dscale sums
+    n_parts = min(rows, 2 * sms)
     partial = torch.empty((n_parts, d), dtype=torch.float32, device=device)
     lib = _bwd_lib or _load_bwd()
     err = _build.call_on_stream(
@@ -137,4 +142,4 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
         msg = lib.rmsnorm_bwd_error_string(err).decode()
         raise RuntimeError(f"rmsnorm_bwd kernel launch failed: {msg} ({err})")
     bwd_launches += 1
-    return dx, dscale.to(scale.dtype)
+    return dx, dscale if out_dtype == scale.dtype else dscale.to(scale.dtype)

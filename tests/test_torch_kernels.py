@@ -101,15 +101,22 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _mm_tf32(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, products: int, *,
+             b_exact: bool = False) -> torch.Tensor:
     """a @ b on TF32 tensor cores as the kernel issues it: 3 products
-    lo.hi + hi.lo + hi.hi (small terms first), or hi.hi alone.  Products of
-    TF32 values are exact in fp32, so an fp32 matmul of them stands in for
-    the tensor core up to the order of its fp32 sums."""
+    lo.hi + hi.lo + hi.hi (small terms first), or hi.hi alone.  With
+    ``b_exact`` (a bf16 operand, exact in TF32) b has no lo part and the
+    3-product form is the kernel's two, lo.hi + hi.hi.  Products of TF32
+    values are exact in fp32, so an fp32 matmul of them stands in for the
+    tensor core up to the order of its fp32 sums."""
     ah, bh = _tf32(a), _tf32(b)
     if products == 1:
         return ah @ bh
-    al, bl = _tf32(a - ah), _tf32(b - bh)
+    al = _tf32(a - ah)
+    if b_exact:
+        assert torch.equal(bh, b)
+        return al @ bh + ah @ bh
+    bl = _tf32(b - bh)
     return (al @ bh + ah @ bl) + ah @ bh
 
 
@@ -142,6 +149,56 @@ def test_3xtf32_meets_the_fp32_tolerance_and_1xtf32_does_not(group, S, hd, produ
         assert err <= ATTN_TOL["float32"], err
     else:
         assert err > 10 * ATTN_TOL["float32"], err
+
+
+@pytest.mark.parametrize("form", ["3xTF32", "1xTF32", "bf16 operands"])
+@pytest.mark.parametrize("group,S,hd", [(1, 512, 80), (8, 512, 128)],
+                         ids=["stablelm-3b", "yi-9b"])
+def test_backward_3xtf32_meets_the_fp32_tolerance_and_1xtf32_does_not(group, S, hd, form):
+    """The backward kernel's five products on the tensor cores, emulated as
+    it issues them, for one causal KV group (G query heads folded over
+    one K/V head, N(0, 1) inputs): S = Q K^T, dP = dO V^T, dV = P^T dO,
+    dK = dS^T Q and dQ = dS K, with P and dS (fp32 values the kernel
+    computes) always split.  dK and dV sum over all G * S folded rows.
+    Each gradient within 2e-5 * max(1, max |fp64 reference|) in 3xTF32,
+    and in the bf16 kernel's form (operands rounded to bf16, exact in TF32,
+    so only P and dS have lo parts); not in 1xTF32."""
+    rng = np.random.default_rng(11)
+    q, do = (rng.standard_normal((S * group, hd), dtype=np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((S, hd), dtype=np.float32) for _ in range(2))
+    if form == "bf16 operands":
+        q, do, k, v = (torch.from_numpy(a).bfloat16().float().numpy() for a in (q, do, k, v))
+    # folded row f is query position f // G
+    mask = (np.arange(S * group)[:, None] // group) >= np.arange(S)[None, :]
+    scale = 1.0 / hd ** 0.5
+    # fp64 reference
+    q64, k64, v64, do64 = (a.astype(np.float64) for a in (q, k, v, do))
+    s64 = np.where(mask, q64 @ k64.T * scale, -np.inf)
+    lse64 = np.log(np.exp(s64 - s64.max(-1, keepdims=True)).sum(-1)) + s64.max(-1)
+    p64 = np.exp(s64 - lse64[:, None])
+    o64 = p64 @ v64
+    ds64 = p64 * (do64 @ v64.T - (do64 * o64).sum(-1, keepdims=True))
+    want = {"dq": ds64 @ k64 * scale, "dk": ds64.T @ q64 * scale, "dv": p64.T @ do64}
+    # the kernel's arithmetic: lse and O from the forward in fp32, D in fp32
+    products = 1 if form == "1xTF32" else 3
+    exact = form == "bf16 operands"
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    lse = torch.from_numpy(lse64.astype(np.float32))
+    D = (dot * torch.from_numpy(o64.astype(np.float32))).sum(-1)
+    mt = torch.from_numpy(mask)
+    s = _mm_tf32(qt, kt.T, 1 if exact else products)
+    p = torch.where(mt, torch.exp(s * scale - lse[:, None]), torch.zeros_like(s))
+    dp = _mm_tf32(dot, vt.T, 1 if exact else products)
+    ds = p * (dp - D[:, None])
+    got = {"dq": _mm_tf32(ds, kt, products, b_exact=exact) * scale,
+           "dk": _mm_tf32(ds.T.contiguous(), qt, products, b_exact=exact) * scale,
+           "dv": _mm_tf32(p.T.contiguous(), dot, products, b_exact=exact)}
+    errs = {n: np.abs(got[n].numpy() - want[n]).max() / max(1.0, np.abs(want[n]).max())
+            for n in want}
+    if form == "1xTF32":
+        assert all(e > 10 * ATTN_TOL["float32"] for e in errs.values()), errs
+    else:
+        assert all(e <= ATTN_TOL["float32"] for e in errs.values()), errs
 
 
 @pytest.mark.parametrize("blocks", [(64, 64), (128, 64), (64, 128)])
@@ -262,6 +319,39 @@ def test_build_names_libraries_by_source_and_honours_build_dir(monkeypatch, tmp_
         # names the TPU kernel it replaces, or whose gradient it computes
         assert f"src/repro/kernels/{name.removesuffix('_bwd')}.py" in text
         assert f'extern "C" int {entry[name]}(' in text
+
+
+def test_library_names_follow_the_shared_header(monkeypatch, tmp_path):
+    """A source that includes ``csrc/mma_tf32.cuh`` is rebuilt when the
+    header changes: every library's name hashes the shared headers."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in [*_build.SOURCES.values(), *_build.headers()]:
+        (csrc / path.name).write_bytes(path.read_bytes())
+    assert [h.name for h in _build.headers()] == ["mma_tf32.cuh"]
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "SOURCES", {n: csrc / p.name for n, p in _build.SOURCES.items()})
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    header = csrc / "mma_tf32.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in before)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert '#include "mma_tf32.cuh"' in _build.SOURCES[name].read_text()
+
+
+@pytest.mark.parametrize("name", ["flash_attention_bwd", "rmsnorm_bwd"])
+def test_backward_kernels_sum_in_a_fixed_order(name):
+    """No atomics in either backward source: a second call on the same
+    inputs is bitwise equal to the first (``chip_smoke.py`` phase 3c (b)
+    checks it on the card), which the resume drill's equality rests on."""
+    text = _build.SOURCES[name].read_text()
+    assert not re.search(r"\batomic\w*\s*\(", text)
+    if name == "flash_attention_bwd":
+        # every product on the tensor cores, through the shared helper
+        assert "mma(" in text and "fmaf(a[i], b[i], acc)" in text
+        assert text.count("dot_rows<T, HD, kRT>(") == 4  # S^T, dP^T; S, dP
+        assert text.count("acc_tile<T, HD, kRT>(") == 3  # dV, dK; dQ
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
