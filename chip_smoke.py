@@ -88,11 +88,22 @@ On one NVIDIA card (written for an H100) it
    times one message of 2, 12 and 46 MB through a pipe; and renders the
    merged telemetry and metrics of ``fleet_serve`` with
    ``launch/stats.py``;
-10. prints an ``{"autotune": {...}}`` line, a ``{"serving": {...}}``
+10. runs the sharding layer (``repro_torch.parallel``, ``launch.mesh``,
+   ``launch.elastic``) on a one-rank ``nccl`` process group and a (1, 1)
+   card mesh: decodes yi-9b at full width and depth (fp32, 4 x 512 prompt
+   tokens, 16 greedy steps) with ``decode_attn="sharded"`` and with
+   ``"local"`` and gates on equal tokens, logits within 1e-4, caches within
+   1e-6 and exact launch counts, printing decode ms a step both ways;
+   distributes stablelm-3b's full-width parameters (from numpy) onto the
+   card by their logical axes through ``reshard_tree`` and restores a
+   reduced checkpoint with ``shardings``, each bitwise equal on readback;
+   and runs the four ``examples/torch/`` scripts with ``--device cuda``,
+   each gated on exit 0 and its own checks;
+11. prints an ``{"autotune": {...}}`` line, a ``{"serving": {...}}``
    line, ``{"chaos": ...}``, ``{"recurrent_moe": ...}``,
-   ``{"train": ...}``, ``{"baselines": ...}``, ``{"real_trace": ...}`` and
-   ``{"fleet": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, ...}``.
+   ``{"train": ...}``, ``{"baselines": ...}``, ``{"real_trace": ...}``,
+   ``{"fleet": ...}`` and ``{"sharding": ...}`` lines, a
+   ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero.  Without CUDA, or without this
 checkout's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -490,7 +501,12 @@ def main() -> int:
     # -- 9. the fleet ----------------------------------------------------------
     fleet = fleet_phase(torch, autotune["artifact_id"])
 
-    # -- 10. result ------------------------------------------------------------
+    # -- 10. the sharding layer and the examples --------------------------------
+    sharding = sharding_phase(torch, dev, card)
+    for row in rows:
+        row["launches"] += sharding["launches"].get(row["name"], 0)
+
+    # -- 11. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"autotune": autotune}))
     print(json.dumps({"serving": serving}))
@@ -500,6 +516,7 @@ def main() -> int:
     print(json.dumps({"baselines": baselines}))
     print(json.dumps({"real_trace": real_trace}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"sharding": sharding}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2563,6 +2580,258 @@ def fleet_phase(torch, artifact_id):
           f"gone, no live fleet child)")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"fleet: phase {out['phase_s']:.1f} s")
+    return out
+
+
+# the sharding phase: yi-9b decoded sharded and local on a one-rank mesh,
+# stablelm-3b's parameters resharded onto the card, the four examples
+SHARD_DECODE = dict(arch="yi-9b", batch=4, prompt_len=512, gen_len=16)
+SHARD_LOGIT_TOL = 1e-4
+SHARD_CACHE_TOL = 1e-6
+RESHARD_ARCH = "stablelm-3b"
+EXAMPLES = ("quickstart", "serve_batched", "autotune_workloads", "fault_tolerant_train")
+EXAMPLE_TIMEOUT_S = 420
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharding_phase(torch, dev, card):
+    """The sharding layer and the examples on the card.
+
+    (a) A one-rank process group (``nccl`` on the card) and
+    ``make_test_mesh(1, 1)``; yi-9b at full width and depth, fp32, prefilled
+    at 4 x 512 tokens, then 16 greedy decode steps, once with
+    ``decode_attn="sharded"`` (``decode_attention_sharded``: its all-reduces
+    over the mesh's ``model`` group) and once ``"local"``: gated on equal
+    tokens, every step's logits within 1e-4 and the caches within 1e-6,
+    with exact kernel launch counts; prints decode ms a step both ways.
+    (b) stablelm-3b's full-width parameters, made on the host with numpy,
+    distributed onto the card mesh by their logical axes under
+    ``AxisRules.pod()`` through ``reshard_tree``: bitwise equal on readback,
+    with the rate; then ``Checkpointer.restore(shardings=...)`` of a reduced
+    tree onto the card, bitwise equal.  (c) The four ``examples/torch/``
+    scripts, each a child process with ``--device cuda``: exit 0 and their
+    own checks.  Returns the summary it prints."""
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.elastic import reshard_tree
+    from repro_torch.launch.mesh import dp_axes_of, make_test_mesh
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.parallel.sharding_rules import AxisRules, tree_shardings
+
+    t_phase = time.perf_counter()
+    out, failures = {}, []
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", world_size=1, rank=0)
+    try:
+        mesh = make_test_mesh(1, 1, device=dev)
+        print(f"sharding: {dist.get_backend()} process group of 1 rank, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}")
+
+        # -- (a) sharded decode at full width ------------------------------------
+        arch, B, S, G = (SHARD_DECODE[k] for k in ("arch", "batch", "prompt_len", "gen_len"))
+        cfg = get_arch(arch)
+        rcfg_sharded = RunConfig(decode_attn="sharded", mesh=mesh, dp_axes=dp_axes_of(mesh))
+        models = {"sharded": build_model(arch, rcfg_sharded, device=dev),
+                  "local": build_model(arch, RunConfig(), device=dev)}
+        params = models["local"].init(torch.Generator(device=dev).manual_seed(0))
+        prompts = torch.from_numpy(_prompts(cfg.vocab_size, (B, S))).to(dev)
+        calls = [0]
+        sharded_fn = attn_lib.decode_attention_sharded
+
+        def counted(*a, **k):
+            calls[0] += 1
+            return sharded_fn(*a, **k)
+
+        attn_lib.decode_attention_sharded = counted
+        ops.reset_launch_counts()
+        runs = {}
+        try:
+            with torch.inference_mode():
+                logits, filled = models["local"].prefill(params, {"tokens": prompts})
+                for name, model in models.items():
+                    cache = model.decode_cache(filled, S + G)
+                    toks, tokens, step_logits, step_s = logits.argmax(-1), [], [], []
+                    for i in range(G):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        lg, cache = model.decode_step(params, {"tokens": toks[:, None]},
+                                                      cache, S + i)
+                        toks = lg.argmax(-1)
+                        torch.cuda.synchronize()
+                        step_s.append(time.perf_counter() - t0)
+                        tokens.append(toks)
+                        step_logits.append(lg)
+                    runs[name] = (torch.stack(tokens), torch.stack(step_logits), cache, step_s)
+        finally:
+            attn_lib.decode_attention_sharded = sharded_fn
+        launches = ops.launch_counts()
+        del filled, params
+        want = launch_dict(flash_attention=cfg.num_layers,
+                           rmsnorm=(1 + 2 * G) * _norms_per_forward(cfg))
+        (tok_s, lg_s, cache_s, ms_s), (tok_l, lg_l, cache_l, ms_l) = runs["sharded"], runs["local"]
+        same_tokens = bool(torch.equal(tok_s, tok_l))
+        logit_err = (lg_s - lg_l).abs().max().item()
+        cache_err = max((a[k] - b[k]).abs().max().item()
+                        for a, b in zip(cache_s, cache_l) for k in ("k", "v"))
+        finite = bool(torch.isfinite(lg_s).all())
+        step = {name: sorted(r[3])[len(r[3]) // 2] * 1e3 for name, r in runs.items()}
+        ok = (same_tokens and logit_err <= SHARD_LOGIT_TOL and cache_err <= SHARD_CACHE_TOL
+              and finite and launches == want and calls[0] == G * cfg.num_layers)
+        print(f"sharding (a): {arch} full width and depth, fp32, prefill {B} x {S}, {G} greedy "
+              f"decode steps each way: tokens equal {same_tokens}, logits max_abs_err "
+              f"{logit_err:.3e} (tol {SHARD_LOGIT_TOL:g}), caches max_abs_err {cache_err:.3e} "
+              f"(tol {SHARD_CACHE_TOL:g}), finite {finite}; decode_attention_sharded calls "
+              f"{calls[0]} (expected {G * cfg.num_layers}); launches {launches} (expected "
+              f"{want}) {'ok' if ok else 'FAIL'}")
+        print(f"sharding (a): decode ms a step (median of {G}): sharded {step['sharded']:.3f}, "
+              f"local {step['local']:.3f}, difference {step['sharded'] - step['local']:.3f} "
+              f"(the {dist.get_backend()} path at world size 1; {card})")
+        # what a sharded step adds, a call at a time: each layer's decode
+        # attention both ways at this run's shapes (one layer's cache),
+        # and in the sharded one the all-reduce of the row max (B, KV, G)
+        # and the mesh lookups
+        group = mesh.get_group("model")
+        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        m = torch.zeros((B, KV, cfg.num_heads // KV), device=dev)
+        qa, kn, vn = (torch.randn(shape, device=dev)
+                      for shape in ((B, 1, cfg.num_heads, hd), (B, 1, KV, hd), (B, 1, KV, hd)))
+        kc, vc = cache_l[0]["k"], cache_l[0]["v"]
+        with torch.inference_mode():  # the caches are inference tensors
+            us = {name: cuda_time_ms(torch, fn, [()], iters=100) * 1e3 for name, fn in (
+                ("local_attention", lambda: attn_lib.decode_attention_local(
+                    qa, kn, vn, kc, vc, S + G - 1)),
+                ("sharded_attention", lambda: attn_lib.decode_attention_sharded(
+                    qa, kn, vn, kc, vc, S + G - 1, mesh=mesh, dp_axes=dp_axes_of(mesh))),
+                ("all_reduce", lambda: dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)),
+                ("mesh_lookups", lambda: (mesh.get_group("model"),
+                                          mesh.get_local_rank("model"))))}
+        print(f"sharding (a): us a call: decode attention local {us['local_attention']:.1f}, "
+              f"sharded {us['sharded_attention']:.1f} (one layer, {(B, S + G, KV, hd)} cache), "
+              f"of which dist.all_reduce on the model group {us['all_reduce']:.1f} (x2), "
+              f"mesh.get_group + get_local_rank {us['mesh_lookups']:.1f}; a step makes "
+              f"{cfg.num_layers} such calls")
+        if not ok:
+            failures.append("sharded decode")
+        out["decode"] = dict(arch=arch, batch=B, prompt_len=S, decode_steps=G,
+                             **{f"{name}_us": v for name, v in us.items()},
+                             tokens_equal=same_tokens, logit_max_abs_err=logit_err,
+                             cache_max_abs_err=cache_err, sharded_calls=calls[0],
+                             sharded_step_ms=step["sharded"], local_step_ms=step["local"],
+                             sharded_steps_ms=[s * 1e3 for s in ms_s],
+                             local_steps_ms=[s * 1e3 for s in ms_l])
+        out["launches"] = launches
+        del runs, tok_s, lg_s, cache_s, tok_l, lg_l, cache_l, logits
+        torch.cuda.empty_cache()
+
+        # -- (b) elastic reshard at full width ------------------------------------
+        model = build_model(RESHARD_ARCH, device=dev)
+        shapes, axes = model.abstract_params()
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        host = tree_lib.map(lambda m: rng.random(tuple(m.shape), dtype=np.float32), shapes)
+        gen_s = time.perf_counter() - t0
+        n_params = sum(a.size for a in tree_lib.leaves(host))
+        n_bytes = sum(a.nbytes for a in tree_lib.leaves(host))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = reshard_tree(host, axes, mesh, AxisRules.pod())
+        torch.cuda.synchronize()
+        put_s = time.perf_counter() - t0
+        on_card = all(d.to_local().device.type == dev.type for d in tree_lib.leaves(tree))
+        equal = all(np.array_equal(d.full_tensor().cpu().numpy().view(np.uint32),
+                                   h.view(np.uint32))
+                    for d, h in zip(tree_lib.leaves(tree), tree_lib.leaves(host)))
+        placements = sorted({str(d.placements) for d in tree_lib.leaves(tree)})
+        ok = equal and on_card
+        print(f"sharding (b): {RESHARD_ARCH} full width, {n_params / 1e9:.3f} B parameters, "
+              f"{n_bytes / 1e9:.2f} GB fp32 from numpy ({gen_s:.1f} s to make): reshard_tree "
+              f"onto the card in {put_s:.3f} s, {n_bytes / put_s / 1e9:.2f} GB/s; placements "
+              f"{placements}; bitwise equal on readback {equal} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("reshard_tree")
+        out["reshard"] = dict(arch=RESHARD_ARCH, params=n_params, bytes=n_bytes,
+                              seconds=put_s, gb_per_s=n_bytes / put_s / 1e9, bitwise_equal=equal)
+        del tree, host
+        torch.cuda.empty_cache()
+
+        small = build_model(RESHARD_ARCH, reduced=True, device="cpu")
+        small_params = small.init(torch.Generator().manual_seed(0))
+        ckpt_dir = os.path.join(ROOT, "build", "chip_smoke", "sharding_ckpt")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        Checkpointer(ckpt_dir, async_save=False).save(7, small_params)
+        step_no, restored = Checkpointer(ckpt_dir).restore(
+            shardings=tree_shardings(small.abstract_params()[1], AxisRules.pod(), mesh))
+        got, want_leaves = tree_lib.leaves(restored), tree_lib.leaves(small_params)
+        equal = (step_no == 7 and len(got) == len(want_leaves)
+                 and all(d.to_local().device.type == dev.type
+                         and torch.equal(d.full_tensor().cpu(), w)
+                         for d, w in zip(got, want_leaves)))
+        shutil.rmtree(ckpt_dir)
+        print(f"sharding (b): Checkpointer.restore(shardings=...) of reduced {RESHARD_ARCH} "
+              f"({len(got)} leaves) onto the card: bitwise equal {equal} "
+              f"{'ok' if equal else 'FAIL'}")
+        if not equal:
+            failures.append("Checkpointer.restore(shardings=...)")
+        out["restore_bitwise_equal"] = equal
+    finally:
+        dist.destroy_process_group()
+        for k in ("MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+
+    # -- (c) the four examples ---------------------------------------------------
+    ex_dir = os.path.join(ROOT, "build", "chip_smoke", "examples")
+    shutil.rmtree(ex_dir, ignore_errors=True)
+    os.makedirs(ex_dir)
+    shutil.rmtree(os.path.join(ROOT, "build", "examples"), ignore_errors=True)  # quickstart cold
+    profile = os.path.join(ex_dir, "profile_cache_cuda.json")
+    if os.path.exists(CORPUS_CACHE):  # the cells phase 5 profiled are read back
+        shutil.copy(CORPUS_CACHE, profile)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_TORCH_PROFILE_CACHE=profile)
+    out["examples"] = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "torch",
+                                                            f"{name}.py"), "--device", "cuda"],
+                              cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=EXAMPLE_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        with open(os.path.join(ex_dir, f"{name}.log"), "w") as f:
+            f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        headline = lines[-1] if lines else ""
+        ok = proc.returncode == 0
+        if name == "quickstart":
+            ok &= "warm hit: cached=True, same config=True" in proc.stdout
+        if name == "fault_tolerant_train":
+            ok &= headline.startswith("resumed from step")
+        print(f"sharding (c): examples/torch/{name}.py --device cuda: exit {proc.returncode} "
+              f"in {secs:.1f} s; {headline!r} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            print(proc.stdout[-3000:] + proc.stderr[-3000:])
+            failures.append(f"examples/torch/{name}.py")
+        out["examples"][name] = dict(exit=proc.returncode, seconds=secs, headline=headline)
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"sharding: phase {out['phase_s']:.1f} s")
+    if failures:
+        raise SystemExit("sharding phase failed: " + ", ".join(failures))
     return out
 
 

@@ -12,7 +12,8 @@ numpy has no bfloat16.  A bf16 tensor is stored as its uint16 bit
 pattern under its key with the suffix ``::bfloat16``, and restored as a
 bf16 tensor of the same bits; every other leaf is stored as its numpy
 array.  ``restore`` returns CPU tensors (sequences as tuples, as the JAX
-package restores them); the caller moves them to its device.
+package restores them); the caller moves them to its device, or passes
+``shardings`` to get each leaf distributed over a device mesh.
 """
 from __future__ import annotations
 
@@ -24,6 +25,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import tree as tree_lib
+from repro_torch.parallel.sharding_rules import distribute
 
 _BF16 = "::bfloat16"
 
@@ -149,13 +153,19 @@ class Checkpointer:
         steps = self.valid_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None):
+    def restore(self, step: Optional[int] = None, *, shardings=None):
         """(step, tree of CPU tensors) of ``step`` or the latest valid
-        checkpoint; (None, None) when there is none."""
+        checkpoint; (None, None) when there is none.  ``shardings``, a tree
+        of ``sharding_rules.NamedSharding`` of the checkpoint's structure
+        (lists where it restores tuples), distributes each leaf over its
+        mesh: the tree then holds DTensors."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
         path = os.path.join(self.dir, f"ckpt_{step:08d}.npz")
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
-        return step, _unflatten(flat)
+        tree = _unflatten(flat)
+        if shardings is not None:
+            tree = tree_lib.map(distribute, tree, shardings)
+        return step, tree

@@ -10,8 +10,7 @@ seen (program, dataset-bucket) in microseconds instead of re-profiling —
 the runtime-deployment story of paper Fig. 4 at production request rates.
 
 Cache keys and the JSON file format are the JAX package's, so a cache
-written by either package loads in the other.  (The JAX package's
-``rank_by_roofline`` waits for the port of its roofline analysis.)
+written by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -265,3 +264,38 @@ class AutoTuner:
         if self.cache is not None:
             self.cache.put(key, result)
         return result
+
+
+# ---------------------------------------------------------------------------
+# Pod-scale candidate ranking (mesh backend)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshCandidate:
+    """A pod-scale 'stream configuration': how the fixed chip grid is
+    factorized (spatial) and how many microbatches per step (temporal)."""
+
+    data: int
+    model: int
+    microbatches: int
+
+    @property
+    def stream_config(self) -> StreamConfig:
+        return StreamConfig(self.data, self.microbatches)
+
+
+def rank_by_roofline(candidates, terms: dict) -> list:
+    """Rank MeshCandidates by their roofline makespan estimate.
+
+    ``terms`` maps candidate -> dict(compute=, memory=, collective=) in
+    seconds.  The makespan model assumes the collective term overlaps
+    compute up to the dominant-term bound: the same overlap objective the
+    paper's model learns.
+    """
+    def makespan(c):
+        t = terms[c]
+        return max(t["compute"], t["memory"]) + max(
+            0.0, t["collective"] - 0.5 * max(t["compute"], t["memory"]))
+
+    return sorted(candidates, key=makespan)

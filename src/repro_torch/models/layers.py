@@ -2,9 +2,13 @@
 next-token loss.
 
 Parameters are plain dicts of tensors in the JAX package's layouts, so
-``repro_torch.weights`` converts a JAX parameter tree by copying.  The
-logical-axes machinery of the JAX ``Leaf`` only serves sharding and is not
-carried over.
+``repro_torch.weights`` converts a JAX parameter tree by copying.  Where
+the JAX package wraps each parameter in a ``Leaf`` that carries its
+logical axes, every initialiser here takes the axes beside the shape and
+checks that they name every dim; given ``AXES`` as its generator it
+returns the axes tuple instead of a tensor.  So the same init code builds
+the parameter tree and its logical-axes tree
+(``transformer.param_logical_axes``), and the two cannot drift apart.
 """
 from __future__ import annotations
 
@@ -20,30 +24,59 @@ from repro_torch.kernels import ops
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, shape, *, fan_in=None, dtype=torch.float32,
-               device="cpu") -> torch.Tensor:
+class _AxesOnly:
+    """The type of ``AXES``."""
+
+    def __repr__(self) -> str:
+        return "layers.AXES"
+
+
+#: Pass as the generator of an initialiser (or of ``init_params``) to get
+#: the logical axes (a tuple of names or None, one per dim) in place of a
+#: tensor.
+AXES = _AxesOnly()
+
+
+def param(gen, shape, axes, make):
+    """``make()``, the parameter of ``shape``, or its logical ``axes`` when
+    ``gen`` is ``AXES``; raises if ``axes`` does not name every dim."""
+    axes = tuple(axes)
+    if len(axes) != len(shape):
+        raise ValueError(f"logical axes {axes} do not match the shape {tuple(shape)}")
+    return axes if gen is AXES else make()
+
+
+def dense_init(gen: torch.Generator, shape, axes, *, fan_in=None, dtype=torch.float32,
+               device="cpu"):
     """Truncated normal on [-2, 2] scaled by 1/sqrt(fan_in) (first axis by
     default)."""
-    fan = fan_in if fan_in is not None else shape[0]
-    w = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    w.mul_(1.0 / max(fan, 1) ** 0.5)
-    return w.to(dtype)
+    def make():
+        fan = fan_in if fan_in is not None else shape[0]
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        w.mul_(1.0 / max(fan, 1) ** 0.5)
+        return w.to(dtype)
+    return param(gen, shape, axes, make)
 
 
-def embed_init(gen: torch.Generator, shape, *, dtype=torch.float32,
-               device="cpu") -> torch.Tensor:
-    w = torch.empty(shape, dtype=torch.float32, device=device)
-    w.normal_(generator=gen)
-    return w.to(dtype)
+def embed_init(gen: torch.Generator, shape, axes, *, dtype=torch.float32, device="cpu"):
+    def make():
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        w.normal_(generator=gen)
+        return w.to(dtype)
+    return param(gen, shape, axes, make)
 
 
-def zeros_init(shape, *, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    return torch.zeros(shape, dtype=dtype, device=device)
+def zeros_init(gen, shape, axes, *, dtype=torch.float32, device="cpu"):
+    """Zeros (``gen`` only selects ``AXES``)."""
+    return param(gen, shape, axes,
+                 lambda: torch.zeros(shape, dtype=dtype, device=device))
 
 
-def ones_init(shape, *, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    return torch.ones(shape, dtype=dtype, device=device)
+def ones_init(gen, shape, axes, *, dtype=torch.float32, device="cpu"):
+    """Ones (``gen`` only selects ``AXES``)."""
+    return param(gen, shape, axes,
+                 lambda: torch.ones(shape, dtype=dtype, device=device))
 
 
 def param_count(tree) -> int:
@@ -60,8 +93,8 @@ def param_count(tree) -> int:
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm_init(d: int, *, dtype=torch.float32, device="cpu") -> dict:
-    return {"scale": ones_init((d,), dtype=dtype, device=device)}
+def rmsnorm_init(gen, d: int, *, dtype=torch.float32, device="cpu") -> dict:
+    return {"scale": ones_init(gen, (d,), ("embed",), dtype=dtype, device=device)}
 
 
 def rmsnorm_apply(params: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -77,10 +110,10 @@ def rmsnorm_apply(params: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *, gated: bool,
              dtype=torch.float32, device="cpu") -> dict:
     kw = dict(dtype=dtype, device=device)
-    p = {"w_in": dense_init(gen, (d_model, d_ff), **kw),
-         "w_out": dense_init(gen, (d_ff, d_model), **kw)}
+    p = {"w_in": dense_init(gen, (d_model, d_ff), ("embed", "ff"), **kw),
+         "w_out": dense_init(gen, (d_ff, d_model), ("ff", "embed"), **kw)}
     if gated:
-        p["w_gate"] = dense_init(gen, (d_model, d_ff), **kw)
+        p["w_gate"] = dense_init(gen, (d_model, d_ff), ("embed", "ff"), **kw)
     return p
 
 
@@ -100,7 +133,8 @@ def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def embedding_init(gen: torch.Generator, vocab: int, d_model: int, *,
                    dtype=torch.float32, device="cpu") -> dict:
-    return {"table": embed_init(gen, (vocab, d_model), dtype=dtype, device=device)}
+    return {"table": embed_init(gen, (vocab, d_model), ("vocab", "embed"), dtype=dtype,
+                                device=device)}
 
 
 def embedding_lookup(params: dict, tokens: torch.Tensor) -> torch.Tensor:

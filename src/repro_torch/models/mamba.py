@@ -30,18 +30,19 @@ def mamba_init(gen: torch.Generator, d_model: int, cfg: SSMConfig, *,
     N = cfg.state_dim
     R = _dt_rank(d_model, cfg)
     kw = dict(dtype=dtype, device=device)
-    # S4D-real initialization for A.
-    a = torch.arange(1, N + 1, dtype=torch.float32, device=device).repeat(E, 1)
     return {
-        "in_proj": layers.dense_init(gen, (d_model, 2 * E), **kw),
-        "conv_w": layers.dense_init(gen, (cfg.conv_width, E), fan_in=cfg.conv_width, **kw),
-        "conv_b": layers.zeros_init((E,), **kw),
-        "x_proj": layers.dense_init(gen, (E, R + 2 * N), **kw),
-        "dt_proj": layers.dense_init(gen, (R, E), **kw),
-        "dt_bias": layers.zeros_init((E,), **kw),
-        "A_log": torch.log(a),
-        "D": layers.ones_init((E,), device=device),
-        "out_proj": layers.dense_init(gen, (E, d_model), fan_in=E, **kw),
+        "in_proj": layers.dense_init(gen, (d_model, 2 * E), ("embed", "inner"), **kw),
+        "conv_w": layers.dense_init(gen, (cfg.conv_width, E), ("conv", "inner"),
+                                    fan_in=cfg.conv_width, **kw),
+        "conv_b": layers.zeros_init(gen, (E,), ("inner",), **kw),
+        "x_proj": layers.dense_init(gen, (E, R + 2 * N), ("inner", None), **kw),
+        "dt_proj": layers.dense_init(gen, (R, E), (None, "inner"), **kw),
+        "dt_bias": layers.zeros_init(gen, (E,), ("inner",), **kw),
+        # S4D-real initialization for A.
+        "A_log": layers.param(gen, (E, N), ("inner", "ssm_state"), lambda: torch.log(
+            torch.arange(1, N + 1, dtype=torch.float32, device=device).repeat(E, 1))),
+        "D": layers.ones_init(gen, (E,), ("inner",), device=device),
+        "out_proj": layers.dense_init(gen, (E, d_model), ("inner", "embed"), fan_in=E, **kw),
     }
 
 

@@ -7,6 +7,9 @@ serving entry points of the JAX package's ``Model``:
     prefill(params, batch)               -- last-token logits + filled states
     decode_cache(filled, max_seq)        -- the decode cache they start
     decode_step(params, batch, cache, t) -- one token against the cache
+and, for sharding, the shapes and logical axes of the parameters, the
+cache and the inputs of a cell (``abstract_params``, ``cache_axes``,
+``input_specs``), as ``meta`` tensors: they allocate nothing.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, get_arch
+from repro_torch.configs.base import ArchConfig, InputShape, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.transformer import RunConfig
@@ -30,6 +33,12 @@ class Model:
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters from ``gen``, a generator on this model's device."""
         return transformer.init_params(gen, self.cfg, self.rcfg, device=self.device)
+
+    def abstract_params(self):
+        """(params, axes): ``init_params``' tree as ``meta`` tensors (shapes
+        and dtypes, no allocation), and its logical axes."""
+        shapes = transformer.init_params(None, self.cfg, self.rcfg, device="meta")
+        return shapes, transformer.param_logical_axes(self.cfg, self.rcfg)
 
     def loss(self, params, batch):
         """Returns (loss, {"ce", "moe_aux"}) for ``batch["labels"]``."""
@@ -49,6 +58,9 @@ class Model:
     def init_cache(self, batch_size: int, max_seq: int):
         return transformer.init_cache(self.cfg, self.rcfg, batch_size, max_seq,
                                       device=self.device)
+
+    def cache_axes(self) -> list:
+        return transformer.cache_logical_axes(self.cfg)
 
     def decode_cache(self, filled: list, max_seq: int) -> list:
         """The decode cache after a prefill: each attention layer's k/v
@@ -71,6 +83,24 @@ class Model:
         logits, _, new_cache = transformer.forward(
             params, batch, self.cfg, self.rcfg, cache=cache, t=t)
         return logits[:, 0], new_cache
+
+    def input_specs(self, shape: InputShape, *, dtype=torch.int32) -> dict:
+        """``meta`` stand-ins for every model input of a cell."""
+        B, S = shape.global_batch, shape.seq_len
+        f32 = torch.bfloat16 if self.rcfg.compute_dtype == torch.bfloat16 else torch.float32
+        spec = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+        if shape.kind in ("train", "prefill"):
+            specs = {"tokens": spec((B, S), dtype)}
+            if self.cfg.frontend:
+                specs["embeds"] = spec((B, S, self.cfg.frontend_dim), f32)
+            if shape.kind == "train":
+                specs["labels"] = spec((B, S), dtype)
+            return specs
+        # decode: one new token; the KV/state cache covers seq_len positions.
+        specs = {"tokens": spec((B, 1), dtype)}
+        if self.cfg.frontend:
+            specs["embeds"] = spec((B, 1, self.cfg.frontend_dim), f32)
+        return specs
 
 
 def build_model(arch: str, rcfg: Optional[RunConfig] = None, *,

@@ -21,13 +21,18 @@ def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *, gated: bool,
              dtype=torch.float32, device="cpu") -> dict:
     E, Fd = cfg.num_experts, cfg.expert_d_ff
     kw = dict(dtype=dtype, device=device)
+    ff_axis = "expert_ff_tp" if cfg.sharding == "tp" else "expert_ff"
+    e_axis = None if cfg.sharding == "tp" else "expert"
     p = {
-        "router": layers.dense_init(gen, (d_model, E), **kw),
-        "w_in": layers.dense_init(gen, (E, d_model, Fd), fan_in=d_model, **kw),
-        "w_out": layers.dense_init(gen, (E, Fd, d_model), fan_in=Fd, **kw),
+        "router": layers.dense_init(gen, (d_model, E), ("embed", None), **kw),
+        "w_in": layers.dense_init(gen, (E, d_model, Fd), (e_axis, "embed", ff_axis),
+                                  fan_in=d_model, **kw),
+        "w_out": layers.dense_init(gen, (E, Fd, d_model), (e_axis, ff_axis, "embed"),
+                                   fan_in=Fd, **kw),
     }
     if gated:
-        p["w_gate"] = layers.dense_init(gen, (E, d_model, Fd), fan_in=d_model, **kw)
+        p["w_gate"] = layers.dense_init(gen, (E, d_model, Fd), (e_axis, "embed", ff_axis),
+                                        fan_in=d_model, **kw)
     if cfg.dense_residual:
         p["dense"] = layers.mlp_init(gen, d_model, cfg.dense_d_ff, gated=gated, **kw)
     return p

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Any
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -23,20 +24,31 @@ from repro_torch.models import layers
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.parallel.sharding_rules import AxisRules
 
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Runtime knobs orthogonal to the architecture (those that matter on
-    one card)."""
+    """Runtime knobs orthogonal to the architecture.
+
+    ``rules`` maps logical axes to mesh axes (``AxisRules.null()``: no
+    sharding); the models do not read it yet.  ``decode_attn="sharded"``
+    decodes through ``attention.decode_attention_sharded`` over ``mesh``
+    (a ``DeviceMesh`` with a ``model`` dim), each rank holding its own
+    batch rows (split over ``dp_axes``) and its sequence slab of every
+    attention layer's cache."""
 
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     cache_dtype: torch.dtype = torch.float32
+    rules: AxisRules = dataclasses.field(default_factory=AxisRules.null)
     q_block: int = 512
     kv_block: int = 512
     remat: str = "none"           # none | full | dots
     capacity_factor: float = 1.25
+    decode_attn: str = "local"    # local | sharded
+    mesh: Any = None              # required for decode_attn == "sharded"
+    dp_axes: tuple = ("data",)
     moe_aux_weight: float = 0.01
     moe_group_size: int = 512
 
@@ -65,16 +77,17 @@ def _is_moe(cfg: ArchConfig, pos: int) -> bool:
 def _attn_init(gen, cfg: ArchConfig, kw) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
-        "wq": layers.dense_init(gen, (d, H, hd), **kw),
-        "wk": layers.dense_init(gen, (d, KV, hd), **kw),
-        "wv": layers.dense_init(gen, (d, KV, hd), **kw),
-        "wo": layers.dense_init(gen, (H, hd, d), fan_in=H * hd, **kw),
+        "wq": layers.dense_init(gen, (d, H, hd), ("embed", "heads", "head_dim"), **kw),
+        "wk": layers.dense_init(gen, (d, KV, hd), ("embed", "kv_heads", "head_dim"), **kw),
+        "wv": layers.dense_init(gen, (d, KV, hd), ("embed", "kv_heads", "head_dim"), **kw),
+        "wo": layers.dense_init(gen, (H, hd, d), ("heads", "head_dim", "embed"),
+                                fan_in=H * hd, **kw),
     }
 
 
 def _block_init(gen, cfg: ArchConfig, pos: int, kw) -> dict:
     btype = cfg.layer_pattern[pos]
-    p: dict = {"norm1": layers.rmsnorm_init(cfg.d_model, **kw)}
+    p: dict = {"norm1": layers.rmsnorm_init(gen, cfg.d_model, **kw)}
     if btype == "attn":
         p["attn"] = _attn_init(gen, cfg, kw)
     elif btype == "mamba":
@@ -86,7 +99,7 @@ def _block_init(gen, cfg: ArchConfig, pos: int, kw) -> dict:
     else:
         raise ValueError(btype)
     if _has_ffn(cfg, pos):
-        p["norm2"] = layers.rmsnorm_init(cfg.d_model, **kw)
+        p["norm2"] = layers.rmsnorm_init(gen, cfg.d_model, **kw)
         if _is_moe(cfg, pos):
             p["ffn"] = moe_lib.moe_init(gen, cfg.d_model, cfg.moe, gated=cfg.gated_mlp, **kw)
         else:
@@ -98,21 +111,32 @@ def _block_init(gen, cfg: ArchConfig, pos: int, kw) -> dict:
 def init_params(gen: torch.Generator, cfg: ArchConfig, rcfg: RunConfig, *,
                 device="cpu") -> dict:
     """Random parameters from ``gen`` (which must live on ``device``), with
-    the JAX package's distributions and layouts."""
+    the JAX package's distributions and layouts.  ``gen=None`` with
+    ``device="meta"`` gives shapes and dtypes and allocates nothing;
+    ``gen=layers.AXES`` gives the logical axes (``param_logical_axes``)."""
     kw = dict(dtype=rcfg.param_dtype, device=device)
     params: dict = {
         "embed": layers.embedding_init(gen, cfg.vocab_size, cfg.d_model, **kw),
-        "final_norm": layers.rmsnorm_init(cfg.d_model, **kw),
-        "lm_head": layers.dense_init(gen, (cfg.vocab_size, cfg.d_model),
+        "final_norm": layers.rmsnorm_init(gen, cfg.d_model, **kw),
+        "lm_head": layers.dense_init(gen, (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                                      fan_in=cfg.d_model, **kw),
     }
     if cfg.frontend:
         params["frontend_proj"] = layers.dense_init(
-            gen, (cfg.frontend_dim, cfg.d_model), fan_in=cfg.frontend_dim, **kw)
+            gen, (cfg.frontend_dim, cfg.d_model), (None, "embed"),
+            fan_in=cfg.frontend_dim, **kw)
     P = len(cfg.layer_pattern)
     params["blocks"] = [_block_init(gen, cfg, l % P, kw)
                         for l in range(cfg.num_layers)]
     return params
+
+
+def param_logical_axes(cfg: ArchConfig, rcfg: RunConfig) -> dict:
+    """The logical axes of every parameter: ``init_params``' tree with a
+    tuple of axis names (or None) per dim in place of each tensor.  The JAX
+    package stacks the blocks over pattern repeats and prefixes their axes
+    with ``"layers"``; here each layer's dict has its own."""
+    return init_params(layers.AXES, cfg, rcfg, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +174,31 @@ def init_cache(cfg: ArchConfig, rcfg: RunConfig, batch: int, max_seq: int, *,
     return cache
 
 
+def cache_logical_axes(cfg: ArchConfig) -> list:
+    """Logical axes of ``init_cache``'s tree (for sharding specs): per
+    layer, the JAX package's axes without its leading ``"layers"``."""
+    P = len(cfg.layer_pattern)
+    axes: list = []
+    for l in range(cfg.num_layers):
+        b = cfg.layer_pattern[l % P]
+        if b == "attn":
+            a = ("cache_batch", "cache_seq", "cache_heads", None)
+            axes.append({"k": a, "v": a})
+        elif b == "mamba":
+            axes.append({"ssm": ("cache_batch", "inner", None),
+                         "conv": ("cache_batch", None, "inner")})
+        elif b == "slstm":
+            a = ("cache_batch", None)
+            axes.append({"c": a, "n": a, "h": a, "m": a})
+        elif b == "mlstm":
+            axes.append({"C": ("cache_batch", "heads", None, None),
+                         "n": ("cache_batch", "heads", None),
+                         "m": ("cache_batch", "heads")})
+        else:
+            raise ValueError(b)
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
@@ -174,8 +223,15 @@ def _attn_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, *, positions,
             raise ValueError(f"decode takes one token per sequence at a position "
                              f"t; got {x.shape[1]} tokens, t={t}")
         kc, vc = cache["k"], cache["v"]
-        o, kc, vc = attn_lib.decode_attention_local(
-            q, k.to(kc.dtype), v.to(vc.dtype), kc, vc, t)
+        kn, vn = k.to(kc.dtype), v.to(vc.dtype)
+        if rcfg.decode_attn == "sharded":
+            o, kc, vc = attn_lib.decode_attention_sharded(
+                q, kn, vn, kc, vc, t, mesh=rcfg.mesh, dp_axes=rcfg.dp_axes)
+        elif rcfg.decode_attn == "local":
+            o, kc, vc = attn_lib.decode_attention_local(q, kn, vn, kc, vc, t)
+        else:
+            raise ValueError(f"decode_attn must be local or sharded; "
+                             f"got {rcfg.decode_attn!r}")
         new_cache = {"k": kc, "v": vc}
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
     return out, new_cache

@@ -33,11 +33,12 @@ def slstm_init(gen: torch.Generator, d_model: int, num_heads: int, cfg: XLSTMCon
     kw = dict(dtype=dtype, device=device)
     return {
         # i, f, z, o stacked on the last dim
-        "W": layers.dense_init(gen, (d_model, 4 * d_model), **kw),
-        "R": layers.dense_init(gen, (num_heads, dh, 4 * dh), fan_in=dh, **kw),
-        "b": layers.zeros_init((4 * d_model,), **kw),
-        "up": layers.dense_init(gen, (d_model, E), **kw),
-        "down": layers.dense_init(gen, (E, d_model), fan_in=E, **kw),
+        "W": layers.dense_init(gen, (d_model, 4 * d_model), ("embed", "inner"), **kw),
+        "R": layers.dense_init(gen, (num_heads, dh, 4 * dh), ("heads", None, None),
+                               fan_in=dh, **kw),
+        "b": layers.zeros_init(gen, (4 * d_model,), ("inner",), **kw),
+        "up": layers.dense_init(gen, (d_model, E), ("embed", "inner"), **kw),
+        "down": layers.dense_init(gen, (E, d_model), ("inner", "embed"), fan_in=E, **kw),
     }
 
 
@@ -96,12 +97,15 @@ def mlstm_init(gen: torch.Generator, d_model: int, num_heads: int, cfg: XLSTMCon
     dh = E // num_heads
     kw = dict(dtype=dtype, device=device)
     return {
-        "in_proj": layers.dense_init(gen, (d_model, 2 * E), **kw),
-        "Wq": layers.dense_init(gen, (num_heads, dh, dh), fan_in=dh, **kw),
-        "Wk": layers.dense_init(gen, (num_heads, dh, dh), fan_in=dh, **kw),
-        "Wv": layers.dense_init(gen, (num_heads, dh, dh), fan_in=dh, **kw),
-        "w_if": layers.dense_init(gen, (E, 2 * num_heads), **kw),
-        "out_proj": layers.dense_init(gen, (E, d_model), fan_in=E, **kw),
+        "in_proj": layers.dense_init(gen, (d_model, 2 * E), ("embed", "inner"), **kw),
+        "Wq": layers.dense_init(gen, (num_heads, dh, dh), ("heads", None, None),
+                                 fan_in=dh, **kw),
+        "Wk": layers.dense_init(gen, (num_heads, dh, dh), ("heads", None, None),
+                                 fan_in=dh, **kw),
+        "Wv": layers.dense_init(gen, (num_heads, dh, dh), ("heads", None, None),
+                                 fan_in=dh, **kw),
+        "w_if": layers.dense_init(gen, (E, 2 * num_heads), ("inner", None), **kw),
+        "out_proj": layers.dense_init(gen, (E, d_model), ("inner", "embed"), fan_in=E, **kw),
     }
 
 

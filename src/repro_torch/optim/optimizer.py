@@ -9,8 +9,7 @@ returns new trees, :func:`apply_updates` writes the new parameters and
 moments into the tensors it is given (in place, under ``torch.no_grad``):
 at stablelm-3b's 2.8 B parameters a second copy of parameters and moments
 would not fit beside them on one 80 GB card.  The returned trees are the
-same objects.  ``state_logical_axes`` (sharding) comes with the sharding
-slice.
+same objects.
 """
 from __future__ import annotations
 
@@ -64,6 +63,11 @@ def init_state(params, cfg: AdamWConfig) -> dict:
     return {"step": torch.zeros((), dtype=torch.int32),
             "m": tree_lib.map(zeros, params),
             "v": tree_lib.map(zeros, params)}
+
+
+def state_logical_axes(param_axes, cfg: AdamWConfig) -> dict:
+    """Optimizer state shards exactly like its parameter."""
+    return {"step": (), "m": param_axes, "v": param_axes}
 
 
 def _global_norm(tree) -> torch.Tensor:

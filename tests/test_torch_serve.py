@@ -115,7 +115,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.serving.traces, repro_torch.launch.stats, "
             "repro_torch.core.analytical, repro_torch.core.classifier, "
             "repro_torch.core.dataset, repro_torch.core.perf_model, "
-            "repro_torch.core.search; "
+            "repro_torch.core.search, repro_torch.parallel.sharding_rules, "
+            "repro_torch.launch.mesh, repro_torch.launch.elastic; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -127,6 +128,8 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
+                         + sorted(str(p.relative_to(ROOT))
+                                  for p in (ROOT / "examples" / "torch").glob("*.py"))
                          + ["chip_smoke.py"])
 def test_source_imports_neither_jax_nor_repro(path):
     assert not _FORBIDDEN.findall((ROOT / path).read_text()), path
