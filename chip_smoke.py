@@ -99,11 +99,24 @@ On one NVIDIA card (written for an H100) it
    reduced checkpoint with ``shardings``, each bitwise equal on readback;
    and runs the four ``examples/torch/`` scripts with ``--device cuda``,
    each gated on exit 0 and its own checks;
-11. prints an ``{"autotune": {...}}`` line, a ``{"serving": {...}}``
+11. runs the roofline walker and the dry-run (``repro_torch.roofline``,
+   ``launch.dryrun``): ``python -m repro_torch.launch.dryrun`` on the
+   host for yi-9b ``train_4k``, ``prefill_32k`` and ``decode_32k`` and
+   xlstm-350m ``train_4k`` at 256 ranks and jamba-1.5-large-398b
+   ``long_500k`` at 512 (child processes under torch's ``fake`` process
+   group, no JAX module, JAX's record keys less ``compile_s``); yi-9b's
+   full-width 4 x 512 prefill on DTensor parameters under
+   ``AxisRules.pod()`` on a one-rank ``nccl`` mesh, gated on logits within
+   1e-4 of the plain tensors', exact launches through the kernels'
+   registered ops and no collective; and the walker's count of phase 3c's
+   training step and of that prefill at one chip against their measured
+   times (no step below its bound) and the liveness estimate of the
+   step's peak memory against the measured peak;
+12. prints an ``{"autotune": {...}}`` line, a ``{"serving": {...}}``
    line, ``{"chaos": ...}``, ``{"recurrent_moe": ...}``,
    ``{"train": ...}``, ``{"baselines": ...}``, ``{"real_trace": ...}``,
-   ``{"fleet": ...}`` and ``{"sharding": ...}`` lines, a
-   ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+   ``{"fleet": ...}``, ``{"sharding": ...}`` and ``{"roofline": ...}``
+   lines, a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero.  Without CUDA, or without this
 checkout's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -119,11 +132,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# Published H100 SXM peaks (dense): HBM bytes/s, fp32 CUDA-core, TF32 and
-# bf16 tensor-core operations/s.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 
 # the autotune phase's profile cache: the 12-cell card corpus the baselines
 # phase reads back
@@ -506,7 +514,12 @@ def main() -> int:
     for row in rows:
         row["launches"] += sharding["launches"].get(row["name"], 0)
 
-    # -- 11. result ------------------------------------------------------------
+    # -- 11. the roofline walker and the dry-run --------------------------------
+    roofline = roofline_phase(torch, dev, card, train)
+    for row in rows:
+        row["launches"] += roofline["launches"].get(row["name"], 0)
+
+    # -- 12. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"autotune": autotune}))
     print(json.dumps({"serving": serving}))
@@ -517,6 +530,7 @@ def main() -> int:
     print(json.dumps({"real_trace": real_trace}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"sharding": sharding}))
+    print(json.dumps({"roofline": roofline}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -610,9 +624,12 @@ def ptxas_instances(log):
 
 def bound(n_bytes, n_ops, dtype):
     """The least time (ms) the card could take: bytes over its memory rate
-    or operations over its peak for ``dtype``, the larger, and which."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype]
+    or operations over its peak for ``dtype``, the larger, and which (the
+    H100 SXM5 figures of ``roofline/analysis.py``)."""
+    from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS_BY_DTYPE
+
+    t_bytes = n_bytes / HBM_BW
+    t_ops = n_ops / PEAK_FLOPS_BY_DTYPE[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1014,6 +1031,7 @@ def train_phase(torch, dev, card):
     from repro_torch.models.model_zoo import Model
     from repro_torch.models.transformer import RunConfig
     from repro_torch.optim import optimizer as opt_lib
+    from repro_torch.roofline.analysis import PEAK_FLOPS_BY_DTYPE
 
     t_phase = time.perf_counter()
     out = {"card": card, "ptxas": {}}
@@ -1328,7 +1346,7 @@ def train_phase(torch, dev, card):
     torch.cuda.empty_cache()
 
     flops = 6 * n_params * tokens
-    share = flops / median_s / PEAK_OPS_PER_S["float32"]
+    share = flops / median_s / PEAK_FLOPS_BY_DTYPE["float32"]
     finite = all(math.isfinite(x) for x in res.losses)
     gn_ok = len(grad_norms) == steps and all(math.isfinite(g) and g > 0 for g in grad_norms)
     ok = res.steps_run == steps and finite and gn_ok and launches == want
@@ -2832,6 +2850,346 @@ def sharding_phase(torch, dev, card):
     print(f"sharding: phase {out['phase_s']:.1f} s")
     if failures:
         raise SystemExit("sharding phase failed: " + ", ".join(failures))
+    return out
+
+
+# the roofline phase: the walker against phase 3c's training step and a
+# yi-9b prefill, that prefill on DTensor parameters, and the dry-run's own
+# entry point on the host
+ROOFLINE_PREFILL = dict(arch="yi-9b", batch=4, seq=512)
+DTENSOR_LOGIT_TOL = 1e-4
+DRYRUN_CELLS = (("yi-9b", "train_4k", False), ("yi-9b", "prefill_32k", False),
+                ("yi-9b", "decode_32k", False), ("xlstm-350m", "train_4k", False),
+                ("jamba-1.5-large-398b", "long_500k", True))
+DRYRUN_TIMEOUT_S = 300
+# the walker's cases at one chip, fp32 (label, arch, batch, length, kind,
+# DryRunOptions): phase 3c's training step, traced whole (its liveness walk
+# reads the peak memory), and (b)'s plain prefill, composed per block
+WALKER_CASES = (
+    ("train", "stablelm-3b", TRAIN_FULL["batch"], TRAIN_FULL["seq"], "train",
+     dict(remat="none", microbatches=TRAIN_FULL["microbatches"], q_block=512, kv_block=512,
+          scan_layers=False)),
+    ("prefill", ROOFLINE_PREFILL["arch"], ROOFLINE_PREFILL["batch"], ROOFLINE_PREFILL["seq"],
+     "prefill", dict(q_block=512, kv_block=512)))
+_WALKER_CHILD = (
+    "import json, sys, torch\n"
+    "from repro_torch.configs.base import InputShape\n"
+    "from repro_torch.launch import dryrun\n"
+    "out = {}\n"
+    "for label, arch, batch, seq, kind, kw in json.loads(sys.argv[1]):\n"
+    "    w = dryrun.walker_cost(arch, InputShape(label, seq, batch, kind),\n"
+    "                           dryrun.DryRunOptions(**kw), dtype=torch.float32)\n"
+    "    out[label] = dict(w, cost=w['cost'].as_dict())\n"
+    "print(json.dumps(out))\n")
+# rank 0's program composed per block against the same program traced whole
+# (the dry-run's --no-scan), on a (2, 4) mesh of the fake group with reduced
+# models, on this host's torch: (arch, layers, sequence length, kind), a
+# child process for each group
+COMPOSE_GROUPS = ((("yi-9b", 4, 16, "train"), ("jamba-1.5-large-398b", None, 256, "decode")),)
+_COMPOSE_CHILD = (
+    "import dataclasses, json, sys\n"
+    "from repro_torch.configs.base import InputShape, get_arch\n"
+    "from repro_torch.launch import dryrun\n"
+    "from repro_torch.launch.mesh import make_test_mesh\n"
+    "dryrun.ensure_world(8)\n"
+    "mesh = make_test_mesh(2, 4, device='cpu')\n"
+    "out = []\n"
+    "for arch, layers, seq, kind in json.loads(sys.argv[1]):\n"
+    "    cfg = get_arch(arch).reduced()\n"
+    "    cfg = dataclasses.replace(cfg, num_layers=layers) if layers else cfg\n"
+    "    opts = dryrun.DryRunOptions(q_block=16, kv_block=16)\n"
+    "    shape = InputShape(kind, seq, 8, kind)\n"
+    "    out.append([dryrun.rank0_cost(arch, shape, mesh, o, cfg=cfg) for o in\n"
+    "                (opts, dataclasses.replace(opts, scan_layers=False))])\n"
+    "print(json.dumps(out))\n")
+# the dry-run's entry point as a user runs it, then the JAX modules the
+# process imported (none)
+_DRYRUN_CHILD = (
+    "import json, runpy, sys\n"
+    "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')\n"
+    "print(json.dumps({'jax_modules': sorted(\n"
+    "    m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))}))\n")
+
+
+def roofline_phase(torch, dev, card, train):
+    """The roofline walker and the dry-run on the card's machine.
+
+    (c) starts first, on the host: ``python -m repro_torch.launch.dryrun``
+    for each of ``DRYRUN_CELLS`` (yi-9b ``train_4k``, ``prefill_32k`` and
+    ``decode_32k`` and xlstm-350m ``train_4k`` on the 256-rank production
+    mesh, jamba-1.5-large-398b ``long_500k`` on the 512-rank one), each a
+    child process under torch's ``fake`` process group with
+    ``JAX_PLATFORMS`` unset, gated on exit 0, JAX's record keys less
+    ``compile_s`` and no JAX module imported, and on rank 0's FLOPs being
+    some and no more than the whole step's; beside them, rank 0's programs
+    of reduced models on a (2, 4) mesh composed per block must equal the
+    same programs traced whole (``COMPOSE_GROUPS``), on this host's torch.
+    Meanwhile (b) prefills yi-9b
+    at full width and depth (fp32, 4 x 512 tokens) on a one-rank ``nccl``
+    (1, 1) mesh with DTensor parameters under ``AxisRules.pod()`` and
+    ``attn_expand_kv``, through the models' ``rules.constrain`` sites and
+    the kernels' registered ops, gated on logits within 1e-4 of the plain
+    tensors' prefill, exact launch counts and no collective; and (a) holds
+    the walker's count (``step_cost`` at one chip, the fp32 peak; traced in
+    a child process started with (c)'s) against phase 3c's measured
+    stablelm-3b training step (traced whole, with the liveness estimate of
+    its peak memory) and against (b)'s plain prefill, gated on no measured
+    time below its bound.  Returns the summary it prints."""
+    import shutil
+    import statistics
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import InputShape, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.parallel.sharding_rules import AxisRules, placements, tree_specs
+    from repro_torch.roofline.analysis import PEAK_FLOPS_BY_DTYPE, roofline_from_traced
+    from repro_torch.roofline.graph_cost import Cost
+
+    t_phase = time.perf_counter()
+    out, failures = {"card": card}, []
+
+    # -- (c) the dry-run's children, started first ------------------------------
+    dr_dir = os.path.join(ROOT, "build", "chip_smoke", "dryrun")
+    shutil.rmtree(dr_dir, ignore_errors=True)
+    os.makedirs(dr_dir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    children = []
+    try:
+        # the walker's traces in a child of their own too, on the host
+        # while (b) runs on the card
+        walker_log = os.path.join(dr_dir, "walker.log")
+        with open(walker_log, "w") as log:
+            walker_proc = subprocess.Popen(
+                [sys.executable, "-c", _WALKER_CHILD, json.dumps(WALKER_CASES)], cwd=ROOT,
+                env=env, stdout=log, stderr=subprocess.STDOUT)
+        children.append(("walker", "", walker_log, time.perf_counter(), walker_proc))
+        compose = []
+        for g, cases in enumerate(COMPOSE_GROUPS):
+            compose_log = os.path.join(dr_dir, f"compose{g}.log")
+            with open(compose_log, "w") as log:
+                proc = subprocess.Popen(
+                    [sys.executable, "-c", _COMPOSE_CHILD, json.dumps(cases)], cwd=ROOT,
+                    env=env, stdout=log, stderr=subprocess.STDOUT)
+            compose.append((cases, compose_log, proc))
+            children.append(("compose", "", compose_log, time.perf_counter(), proc))
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            path = os.path.join(dr_dir, f"{arch}_{shape}.json")
+            cmd = ([sys.executable, "-c", _DRYRUN_CHILD, "--arch", arch, "--shape", shape,
+                    "--out", path] + (["--multi-pod"] if multi_pod else []))
+            with open(path[:-5] + ".log", "w") as log:
+                proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                        stderr=subprocess.STDOUT)
+            children.append((arch, shape, path, time.perf_counter(), proc))
+
+        # -- (b) yi-9b's prefill on DTensor parameters, one rank -------------------
+        arch, B, S = (ROOFLINE_PREFILL[k] for k in ("arch", "batch", "seq"))
+        cfg = get_arch(arch)
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", world_size=1, rank=0)
+        try:
+            mesh = make_test_mesh(1, 1, device=dev)
+            rules = AxisRules.pod()
+            plain = build_model(arch, RunConfig(), device=dev)
+            sharded = build_model(arch, RunConfig(rules=rules, attn_expand_kv=True, mesh=mesh),
+                                  device=dev)
+            params = plain.init(torch.Generator(device=dev).manual_seed(0))
+            _, axes = plain.abstract_params()
+
+            def as_dtensor(t, spec):  # one rank: the local tensor is the whole
+                return DTensor.from_local(t, mesh, placements(mesh, spec, t.shape),
+                                          run_check=False)
+
+            dparams = tree_lib.map(as_dtensor, params, tree_specs(axes, rules))
+            toks = torch.from_numpy(_prompts(cfg.vocab_size, (B, S))).to(dev)
+            runs = {"plain": lambda: plain.forward_logits(params, {"tokens": toks}),
+                    "dtensor": lambda: sharded.forward_logits(
+                        dparams, {"tokens": as_dtensor(toks, rules.spec(("batch", None)))})}
+            launches = {}
+            with torch.no_grad(), implicit_replication():
+                logits = {}
+                for name, fn in runs.items():
+                    ops.reset_launch_counts()
+                    with CommDebugMode() as comm:
+                        logits[name] = fn()
+                    torch.cuda.synchronize()
+                    launches[name] = ops.launch_counts()
+                    if name == "dtensor":
+                        n_coll = comm.get_total_counts()
+                        placed = [str(p) for p in logits[name].placements]
+                        logits[name] = logits[name].full_tensor()
+                err = (logits["dtensor"] - logits["plain"]).abs().max().item()
+                finite = bool(torch.isfinite(logits["dtensor"]).all())
+                del logits
+                times = {name: {"host": [], "wall": []} for name in runs}
+                for r in range(3):  # alternating rounds
+                    for name in (runs if r % 2 == 0 else reversed(list(runs))):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        res = runs[name]()
+                        t_host = time.perf_counter() - t0
+                        torch.cuda.synchronize()
+                        times[name]["wall"].append(time.perf_counter() - t0)
+                        times[name]["host"].append(t_host)
+                        del res
+            del params, dparams
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+            for k in ("MASTER_ADDR", "MASTER_PORT"):
+                os.environ.pop(k, None)
+        want = launch_dict(flash_attention=cfg.num_layers, rmsnorm=_norms_per_forward(cfg))
+        med = {name: {k: statistics.median(v) * 1e3 for k, v in t.items()}
+               for name, t in times.items()}
+        ok = (err <= DTENSOR_LOGIT_TOL and finite and n_coll == 0
+              and launches["dtensor"] == want and launches["plain"] == want)
+        print(f"roofline (b): {arch} full width and depth, fp32, prefill {B} x {S} with DTensor "
+              f"parameters on a one-rank {dist.Backend.NCCL if dev.type == 'cuda' else 'gloo'} "
+              f"(1, 1) mesh under AxisRules.pod(), attn_expand_kv: logits placements {placed}, "
+              f"max_abs_err against plain tensors {err:.3e} (tol {DTENSOR_LOGIT_TOL:g}), "
+              f"finite {finite}; collectives {n_coll}; launches DTensor {launches['dtensor']}, "
+              f"plain {launches['plain']} (expected {want}) {'ok' if ok else 'FAIL'}")
+        print(f"roofline (b): ms a prefill, median of 3 (host until the call returns / wall): "
+              f"plain {med['plain']['host']:.1f} / {med['plain']['wall']:.1f}, DTensor "
+              f"{med['dtensor']['host']:.1f} / {med['dtensor']['wall']:.1f} ({card})")
+        if not ok:
+            failures.append("DTensor prefill")
+        out["dtensor_prefill"] = dict(arch=arch, batch=B, seq=S, max_abs_err=err,
+                                      collectives=n_coll, launches=launches["dtensor"],
+                                      plain_launches=launches["plain"], ms=med,
+                                      placements=placed)
+        out["launches"] = {k: launches["dtensor"][k] + launches["plain"][k] for k in want}
+
+        # -- (a) the walker against the measured steps ---------------------------
+        peak = PEAK_FLOPS_BY_DTYPE["float32"]
+        full = train["full"]
+        rc = walker_proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        with open(walker_log) as f:
+            log = f.read()
+        if rc != 0:
+            print(log[-3000:])
+            raise SystemExit(f"roofline (a): the walker's child exited {rc}")
+        walked = json.loads(log.strip().splitlines()[-1])
+        measured = {"train": full["median_step_s"], "prefill": med["plain"]["wall"] / 1e3}
+        out["walker"] = {}
+        for label, a, batch, seq, kind, _ in WALKER_CASES:
+            w, measured_s = walked[label], measured[label]
+            w["cost"] = Cost(**w["cost"])
+            shape = InputShape(label, seq, batch, kind)
+            terms = roofline_from_traced(w["cost"], n_chips=1, peak_flops=peak)
+            ratio = measured_s / terms.bound_s
+            row = dict(arch=a, batch=shape.global_batch, seq=shape.seq_len,
+                       flops=w["cost"].flops, bytes_fused=w["cost"].bytes_fused,
+                       compute_s=terms.compute_s, memory_s=terms.memory_s,
+                       collective_s=terms.collective_s, bound_s=terms.bound_s,
+                       measured_s=measured_s, measured_over_bound=ratio,
+                       flops_by_class=w["flops_by_class"], trace_s=w["seconds"],
+                       argument_bytes=w["argument"], temp_bytes=w["temp"])
+            print(f"roofline (a): {a} {label} {shape.global_batch} x {shape.seq_len} fp32 at one "
+                  f"chip, the fp32 peak {peak:.3g} FLOP/s: walker {w['cost'].flops:.4e} FLOPs, "
+                  f"bytes_fused {w['cost'].bytes_fused:.4e}; compute {terms.compute_s:.4f} s, "
+                  f"memory {terms.memory_s:.4f} s, collective {terms.collective_s:.4f} s, "
+                  f"bound {terms.bound_s:.4f} s ({terms.dominant}); measured "
+                  f"{measured_s:.4f} s (median), measured / bound {ratio:.3f}; traced in "
+                  f"{w['seconds']:.1f} s ({card})")
+            print("  FLOPs by op class: " + ", ".join(
+                f"{k} {v:.4e}" for k, v in w["flops_by_class"].items() if v))
+            if label == "train":
+                n, tokens = full["params"], shape.global_batch * shape.seq_len
+                emb = get_arch(a).vocab_size * get_arch(a).d_model
+                rough = 6 * n * tokens + w["flops_by_class"]["attention"]
+                row.update(six_n_t_plus_attention=rough, embedding_6nt=6 * emb * tokens,
+                           estimate_bytes=w["argument"] + w["temp"],
+                           measured_peak_bytes=full["peak_gb"] * 1e9)
+                print(f"  against 6 N T + attention = 6 x {n} x {tokens} + "
+                      f"{w['flops_by_class']['attention']:.4e} = {rough:.4e}: walker / that "
+                      f"{w['cost'].flops / rough:.4f}; the embedding's 6 N T "
+                      f"({emb} parameters, a gather and a scatter-add, no product) "
+                      f"{6 * emb * tokens:.4e}")
+                print(f"  peak memory: liveness estimate {row['estimate_bytes'] / 1e9:.2f} GB "
+                      f"(inputs {w['argument'] / 1e9:.2f} + the rest {w['temp'] / 1e9:.2f}), "
+                      f"torch.cuda.max_memory_allocated in phase 3c {full['peak_gb']:.2f} GB")
+            if ratio < 1.0:
+                failures.append(f"{a} {label} measured below its bound")
+            out["walker"][label] = row
+
+        # -- (c) the dry-run's records -------------------------------------------
+        out["dryrun"] = []
+        keys = {"arch", "shape", "mesh", "n_chips", "options", "lower_s", "memory_analysis",
+                "hlo_bytes", "collective_bytes", "collective_counts", "jaxpr_cost_s",
+                "roofline", "xla_cost_analysis"}
+        out["composition"] = []
+        for cases, compose_log, proc in compose:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+            with open(compose_log) as f:
+                log = f.read()
+            composed = json.loads(log.strip().splitlines()[-1]) if rc == 0 else []
+            if len(composed) != len(cases):
+                print(log[-3000:])
+                failures.append(f"composition child exit {rc}")
+            for case, (comp, whole) in zip(cases, composed):
+                metrics = set(whole) - {"seconds", "lengths"}
+                diff = {k: (comp.get(k), whole[k]) for k in metrics if comp.get(k) != whole[k]}
+                ok = not diff and whole["flop_counter"] > 0 and whole["temp"] > 0
+                print(f"roofline (c): rank 0 of reduced {case[0]} ({case[1] or 'its'} layers) "
+                      f"{case[3]} 8 x {case[2]} on a (2, 4) fake mesh, composed per block = "
+                      f"traced whole: nodes {whole['nodes']:.0f}, FlopCounterMode "
+                      f"{whole['flop_counter']:.6g}, collective bytes {whole['coll:total']:.0f}, "
+                      f"peak {whole['temp']:.0f} B; differing {diff} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"composition {case}")
+                out["composition"].append(dict(case=case, differing=diff, whole=whole))
+        for arch_c, shape_c, path, t0, proc in children[1 + len(compose):]:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+            wall = time.perf_counter() - t0
+            with open(path[:-5] + ".log") as f:
+                log = f.read()
+            tail = [ln for ln in log.splitlines() if ln.startswith('{"jax_modules"')]
+            jax_mods = json.loads(tail[-1])["jax_modules"] if tail else None
+            rec = {}
+            if rc == 0 and os.path.exists(path):
+                with open(path) as f:
+                    rec = json.load(f)
+            r = rec.get("roofline", {})
+            # rank 0's products: some, and no more than the whole step's
+            xla = rec.get("xla_cost_analysis", {}).get("flops", 0)
+            ok = (rc == 0 and set(rec) == keys and jax_mods == []
+                  and 0 < r["flops_per_chip"] and 0 < xla <= r["flops_per_chip"] * rec["n_chips"]
+                  and rec["memory_analysis"]["temp_size_in_bytes"] > 0 and rec["hlo_bytes"] > 0
+                  and rec["collective_bytes"]["total"] > 0)
+            print(f"roofline (c): dryrun {arch_c} {shape_c} on {rec.get('mesh')}: exit {rc}, "
+                  f"{wall:.1f} s (trace: rank 0 {rec.get('lower_s')} s, global "
+                  f"{rec.get('jaxpr_cost_s')} s); compute {r.get('compute_s', 0):.4g} s, memory "
+                  f"{r.get('memory_s', 0):.4g} s, collective {r.get('collective_s', 0):.4g} s "
+                  f"({r.get('dominant')}); collective bytes "
+                  f"{rec.get('collective_bytes', {}).get('total')} ({r.get('collective_source')}); "
+                  f"rank 0's FlopCounterMode {xla:.4g} of the step's "
+                  f"{r.get('flops_per_chip', 0) * rec.get('n_chips', 0):.4g}; rank 0's peak "
+                  f"{rec.get('memory_analysis', {}).get('temp_size_in_bytes')} B; JAX modules "
+                  f"{jax_mods} {'ok' if ok else 'FAIL'} (H100 figures; the host of {card})")
+            if not ok:
+                print(log[-3000:])
+                failures.append(f"dryrun {arch_c} {shape_c}")
+            out["dryrun"].append(dict(arch=arch_c, shape=shape_c, exit=rc, seconds=wall,
+                                      record=rec))
+    finally:
+        for *_, proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"roofline: phase {out['phase_s']:.1f} s")
+    if failures:
+        raise SystemExit("roofline phase failed: " + ", ".join(failures))
     return out
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Same-card A/B of the PyTorch/CUDA port between two source trees.
 
-    python3 serve_ab.py --a OLD/src --b src [--workload lm|runner|train]
+    python3 serve_ab.py --a OLD/src --b src [--workload lm|runner|train|moe]
                         [--rounds 4] [--serves 2] [--reps 5]
 
 Each of ``--a`` and ``--b`` is a ``src`` directory that holds ``repro_torch``
@@ -17,6 +17,11 @@ times:
 * ``runner``: ``StreamedRunner.run`` (H2D, kernels, D2H of every slice; the
   min of ``--reps``) on the cells below, at each program's largest dataset,
   with ``host-sync`` and ``host-pipelined``; milliseconds per cell.
+* ``moe``: xlstm-350m at full width and depth, then grok-1-314b (2 layers),
+  jamba-1.5-large-398b (2) and arctic-480b (1) at full width, as
+  ``chip_smoke.py`` phase 3b runs them: fp32, ``Model.prefill`` of 4 x 512
+  prompt tokens (timed on its second call), then 7 ``Model.decode_step``s;
+  prefill seconds and decode milliseconds a step.
 * ``train``: the two backward kernels' device time a call (torch.profiler,
   every launch of the wrapper) at one stablelm-3b training microbatch's
   shapes, fp32, as ``chip_smoke.py`` phase 3c times them; then stablelm-3b
@@ -43,7 +48,12 @@ ARCH, N_REQ, SLOTS, PROMPT, GEN = "yi-9b", 8, 4, 512, 16
 CELLS = (("vecadd", 1, 1), ("vecadd", 32, 64), ("binomial", 1, 1),
          ("mvmult", 4, 8), ("jacobi-1d", 1, 1), ("jacobi-1d", 2, 16))
 BACKENDS = ("host-sync", "host-pipelined")
-METRICS = {"lm": ("decode_s", "prefill_s"), "runner": ("ms",), "train": ("device_ms", "step_s")}
+METRICS = {"lm": ("decode_s", "prefill_s"), "runner": ("ms",), "train": ("device_ms", "step_s"),
+           "moe": ("prefill_s", "decode_ms")}
+# (arch, layers kept of its stack, None for all), 4 x 512 prompt, 8 tokens
+MOE_CELLS = (("xlstm-350m", None), ("grok-1-314b", 2), ("jamba-1.5-large-398b", 2),
+             ("arctic-480b", 1))
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 512, 8
 # one stablelm-3b training microbatch (batch 2 of 512 tokens): its attention
 # (B, S, H, KV, hd) and its RMSNorm rows x width
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = "stablelm-3b", 4, 512, 2, 6
@@ -67,6 +77,53 @@ def lm_worker(label: str, args) -> None:
                           "decode_s": res.wall_s - res.prefill_s,
                           "tokens_per_s": res.tokens_per_s}), flush=True)
         del res
+        torch.cuda.empty_cache()
+
+
+def moe_worker(label: str, args) -> None:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models.model_zoo import Model
+
+    _build.build_all()
+    for arch, depth in MOE_CELLS:
+        if args.archs and arch not in args.archs.split(","):
+            continue
+        cfg = get_arch(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=depth,
+                                      layer_pattern=tuple(cfg.layer_pattern)[:depth])
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT), device="cuda",
+                             generator=gen, dtype=torch.int32)
+        with torch.inference_mode():
+            model.prefill(params, {"tokens": toks})  # a first call, untimed (cuBLAS set-up)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, filled = model.prefill(params, {"tokens": toks})
+            cache = model.decode_cache(filled, MOE_PROMPT + MOE_GEN)
+            del filled
+            tok = logits.argmax(dim=-1)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            for i in range(MOE_GEN - 1):
+                logits, cache = model.decode_step(params, {"tokens": tok[:, None]}, cache,
+                                                  MOE_PROMPT + i)
+                tok = logits.argmax(dim=-1)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0 - prefill_s
+            if not torch.isfinite(logits).all():
+                raise SystemExit(f"{label}: non-finite logits")
+        print(json.dumps({"tree": label, "cell": f"{arch} {cfg.num_layers} layers",
+                          "prefill_s": prefill_s,
+                          "decode_ms": decode_s / (MOE_GEN - 1) * 1e3}), flush=True)
+        del model, params, logits, cache, tok
         torch.cuda.empty_cache()
 
 
@@ -168,6 +225,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--serves", type=int, default=2, help="lm: serves per worker")
     ap.add_argument("--reps", type=int, default=5, help="runner: runs per cell, min taken")
+    ap.add_argument("--archs", default="", help="moe: a comma-separated subset of its archs")
     ap.add_argument("--worker", nargs=2, metavar=("SRC", "LABEL"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -177,7 +235,8 @@ def main() -> int:
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        {"lm": lm_worker, "runner": runner_worker, "train": train_worker}[args.workload](
+        {"lm": lm_worker, "runner": runner_worker, "train": train_worker,
+         "moe": moe_worker}[args.workload](
             label, args)
         return 0
     if not (args.a and args.b):
@@ -191,7 +250,7 @@ def main() -> int:
         for label in ("ab" if r % 2 == 0 else "ba"):
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--workload", args.workload,
-                 "--serves", str(args.serves), "--reps", str(args.reps),
+                 "--serves", str(args.serves), "--reps", str(args.reps), "--archs", args.archs,
                  "--worker", trees[label], label],
                 capture_output=True, text=True)
             sys.stderr.write(out.stderr[-4000:])

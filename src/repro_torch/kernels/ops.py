@@ -11,6 +11,18 @@ launches the forward kernel (for attention with its row log-sum-exp) and
 whose backward launches the hand-written backward kernel; on the CPU the
 same Function runs the plain forward and the plain backward.  Otherwise
 (serving, ``torch.no_grad``) the forward is called directly, as before.
+
+The four kernels are also registered ops, ``torch.ops.repro_torch.*``
+(``flash_attention`` with its lse output, ``flash_attention_bwd``,
+``rmsnorm``, ``rmsnorm_bwd``): the CUDA implementation launches the same
+hand-written kernel through the same wrapper, the CPU one computes the
+plain version, the fake one gives shapes and dtypes (``meta`` and fake
+tensors: ``make_fx`` traces each kernel as one node), a DTensor rule lets
+a DTensor input call the kernel on its local shard, and the registered
+autograd makes the backward op a node of a traced training step.  Only
+DTensor, ``meta`` and fake tensors take that route; a plain CPU or CUDA
+tensor takes the direct path above, which adds no dispatcher time to the
+host-bound decode step.
 """
 from __future__ import annotations
 
@@ -23,9 +35,17 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_ls
 
 
 def _route(t: torch.Tensor, what: str) -> str:
-    if t.device.type in ("cpu", "cuda"):
-        return t.device.type
-    raise ValueError(f"{what}: no kernel for device {t.device}")
+    """``"cpu"`` or ``"cuda"`` for a plain tensor there (the direct path),
+    ``"op"`` for a ``meta`` tensor or a tensor subclass (DTensor, a fake
+    tensor of a trace): the registered op."""
+    if type(t) is torch.Tensor:
+        dev = t.device.type
+        if dev == "cpu" or dev == "cuda":
+            return dev
+        if dev == "meta":
+            return "op"
+        raise ValueError(f"{what}: no kernel for device {t.device}")
+    return "op"
 
 
 def _wants_grad(*ts: torch.Tensor) -> bool:
@@ -92,6 +112,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 128,
     if q_block < 1 or kv_block < 1:
         raise ValueError(f"block sizes must be positive: {q_block}, {kv_block}")
     route = _route(q, "flash_attention")
+    if route == "op":
+        ensure_sharding_rules()
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, q_block, kv_block)[0]
     if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal)
     if route == "cuda":
@@ -106,11 +129,169 @@ def rmsnorm(x, scale, *, eps: float = 1e-5, row_block: int = 256):
     if row_block < 1:
         raise ValueError(f"row_block must be positive: {row_block}")
     route = _route(x, "rmsnorm")
+    if route == "op":
+        ensure_sharding_rules()
+        return torch.ops.repro_torch.rmsnorm(x, scale, eps)
     if _wants_grad(x, scale):
         return _RMSNorm.apply(x, scale, eps)
     if route == "cuda":
         return _rms.rmsnorm_cuda(x, scale, eps=eps)
     return rmsnorm_ref(x, scale, eps=eps)
+
+
+# ---------------------------------------------------------------------------
+# The registered ops
+# ---------------------------------------------------------------------------
+#
+# ``q_block`` and ``kv_block`` ride along in the attention ops' signatures
+# although the kernel ignores them: the roofline walker pads the sequence
+# lengths to them, as the JAX model's blocked attention computes its
+# masked blocks (``roofline/graph_cost.py``).
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        q_block: int, kv_block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o (B,Sq,H,hd) in q's dtype, lse (B,H,Sq) fp32)."""
+    if q.device.type == "cuda":
+        return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        causal=causal, return_lse=True)
+    # contiguous, as the kernel writes them (DTensor views its local
+    # results by the fake implementation's strides)
+    return (flash_attention_ref(q, k, v, causal=causal).contiguous(),
+            flash_attention_lse_ref(q, k, causal=causal).contiguous())
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, q_block, kv_block):
+    B, Sq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool, q_block: int, kv_block: int
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), each in its input's dtype."""
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    if q.device.type == "cuda":
+        return _fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+    return tuple(t.contiguous() for t in flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                                causal=causal))
+
+
+@_flash_attention_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal, q_block, kv_block):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, q_block, kv_block = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.args = (causal, q_block, kv_block)
+
+
+def _flash_backward(ctx, do, dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do, *ctx.args)
+    return dq, dk, dv, None, None, None
+
+
+_flash_attention_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
+def _rmsnorm_op(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    if x.device.type == "cuda":
+        return _rms.rmsnorm_cuda(x.contiguous(), scale, eps=eps)
+    return rmsnorm_ref(x, scale, eps=eps).contiguous()
+
+
+@_rmsnorm_op.register_fake
+def _(x, scale, eps):
+    return x.new_empty(x.shape)
+
+
+@torch.library.custom_op("repro_torch::rmsnorm_bwd", mutates_args=())
+def _rmsnorm_bwd_op(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx in x's dtype, dscale in scale's)."""
+    x, dy = x.contiguous(), dy.contiguous()
+    if x.device.type == "cuda":
+        return _rms.rmsnorm_bwd_cuda(x, scale, dy, eps=eps)
+    return tuple(t.contiguous() for t in rmsnorm_bwd_ref(x, scale, dy, eps=eps))
+
+
+@_rmsnorm_bwd_op.register_fake
+def _(x, scale, dy, eps):
+    return x.new_empty(x.shape), scale.new_empty(scale.shape)
+
+
+def _rmsnorm_setup(ctx, inputs, output):
+    x, scale, eps = inputs
+    ctx.save_for_backward(x, scale)
+    ctx.eps = eps
+
+
+def _rmsnorm_backward(ctx, dy):
+    x, scale = ctx.saved_tensors
+    dx, dscale = torch.ops.repro_torch.rmsnorm_bwd(x, scale, dy, ctx.eps)
+    return dx, dscale, None
+
+
+_rmsnorm_op.register_autograd(_rmsnorm_backward, setup_context=_rmsnorm_setup)
+
+
+def _register_sharding() -> None:
+    """DTensor rules, one mesh dim at a time (DTensor expands them over
+    the mesh): attention on the batch dim, or on the heads when q and k/v
+    have as many heads (``RunConfig.attn_expand_kv``: then every shard of
+    query heads holds its own k/v heads); RMSNorm on any dim but the last,
+    its dscale a partial sum over the row shards.  Every other layout is
+    replicated first.  Importing ``torch.distributed.tensor`` costs about
+    a second, so this runs when the first DTensor reaches an op."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    R = Replicate()
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _(q, k, v, causal, q_block, kv_block):
+        rules = [([R, R], [R, R, R, None, None, None]),
+                 ([Shard(0), Shard(0)], [Shard(0)] * 3 + [None] * 3)]
+        if q.shape[2] == k.shape[2]:
+            rules.append(([Shard(2), Shard(1)], [Shard(2)] * 3 + [None] * 3))
+        return rules
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
+    def _(q, k, v, o, lse, do, causal, q_block, kv_block):
+        rules = [([R] * 3, [R] * 6 + [None] * 3),
+                 ([Shard(0)] * 3, [Shard(0)] * 6 + [None] * 3)]
+        if q.shape[2] == k.shape[2]:
+            rules.append(([Shard(2)] * 3, [Shard(2)] * 4 + [Shard(1), Shard(2)] + [None] * 3))
+        return rules
+
+    @register_sharding(torch.ops.repro_torch.rmsnorm.default)
+    def _(x, scale, eps):
+        return [([R], [R, R, None])] + [([Shard(d)], [Shard(d), R, None])
+                                        for d in range(x.ndim - 1)]
+
+    @register_sharding(torch.ops.repro_torch.rmsnorm_bwd.default)
+    def _(x, scale, dy, eps):
+        return [([R, R], [R, R, R, None])] + [([Shard(d), Partial()], [Shard(d), R, Shard(d), None])
+                                              for d in range(x.ndim - 1)]
+
+
+def ensure_sharding_rules() -> None:
+    """Register the DTensor rules of the four ops (once; idempotent)."""
+    global _SHARDING_REGISTERED
+    if not _SHARDING_REGISTERED:
+        _register_sharding()
+        _SHARDING_REGISTERED = True
+
+
+_SHARDING_REGISTERED = False
 
 
 def launch_counts() -> dict[str, int]:

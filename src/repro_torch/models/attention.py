@@ -46,12 +46,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_block: int = 512,
                     kv_block: int = 512) -> torch.Tensor:
-    """(B,Sq,H,hd) x (B,Sk,KV,hd) -> (B,Sq,H,hd), GQA without expanding K/V.
+    """(B,Sq,H,hd) x (B,Sk,KV,hd) -> (B,Sq,H,hd), GQA without expanding K/V
+    (the kernel groups the query heads of each KV head itself).
 
     Goes through ``kernels.ops.flash_attention``: the hand-written kernel on
     CUDA, the plain version on the CPU."""
     return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, q_block=q_block, kv_block=kv_block)
+
+
+def expand_kv(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B,S,KV,hd) -> (B,S,heads,hd), each KV head repeated for its group
+    of query heads (``jnp.repeat`` on the head axis): the JAX package's
+    ``gqa_grouped=False``."""
+    B, S, KV, hd = t.shape
+    if KV == heads:
+        return t
+    return t[:, :, :, None, :].expand(B, S, KV, heads // KV, hd).reshape(B, S, heads, hd)
 
 
 # The naive O(S^2)-memory oracle for tests: one implementation, shared with
@@ -136,6 +147,12 @@ def decode_attention_sharded(q, k_new, v_new, k_cache, v_cache, t: int, *, mesh,
     for a in dp_axes:
         if a not in mesh.mesh_dim_names:
             raise ValueError(f"dp axis {a!r} is not a dim of the mesh {mesh.mesh_dim_names}")
+    if type(q) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(q, DTensor):
+            return _decode_sharded_dtensor(q, k_new, v_new, k_cache, v_cache, t, mesh=mesh,
+                                           dp_axes=dp_axes, logit_scale=logit_scale)
     B, _, H, hd = q.shape
     scale = logit_scale if logit_scale is not None else 1.0 / (hd ** 0.5)
     s_loc = k_cache.shape[1]
@@ -157,3 +174,22 @@ def decode_attention_sharded(q, k_new, v_new, k_cache, v_cache, t: int, *, mesh,
     l_g, o_g = lo[..., 0], lo[..., 1:]
     out = (o_g / l_g.clamp_min(1e-30)[..., None]).to(q.dtype)
     return out.reshape(B, 1, H, hd), k_cache, v_cache
+
+
+def _decode_sharded_dtensor(q, k_new, v_new, k_cache, v_cache, t: int, *, mesh, dp_axes,
+                            logit_scale):
+    """``decode_attention_sharded`` on DTensors (a model with DTensor
+    parameters and caches): q and the new k/v go to this rank's batch rows
+    with every head, the step runs on the local parts (the caches are laid
+    out by ``cache_logical_axes``: batch rows over ``dp_axes``, the
+    sequence over ``model``), and the output comes back a DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dm = q.device_mesh
+    rows = [Shard(0) if n in dp_axes else Replicate() for n in dm.mesh_dim_names]
+    q, k_new, v_new = (a.redistribute(dm, rows) for a in (q, k_new, v_new))
+    o, _, _ = decode_attention_sharded(q.to_local(), k_new.to_local(), v_new.to_local(),
+                                       k_cache.to_local(), v_cache.to_local(), t, mesh=mesh,
+                                       dp_axes=dp_axes, logit_scale=logit_scale)
+    out = DTensor.from_local(o, dm, rows, run_check=False, shape=q.shape, stride=q.stride())
+    return out, k_cache, v_cache

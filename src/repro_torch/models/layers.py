@@ -18,6 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding_rules import AxisRules
+
+_NULL_RULES = AxisRules.null()
 
 # ---------------------------------------------------------------------------
 # Initializers (the JAX package's distributions; not its random bits)
@@ -117,13 +120,14 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *, gated: bool,
     return p
 
 
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    h = x @ params["w_in"]
+def mlp_apply(params: dict, x: torch.Tensor, rules: AxisRules = _NULL_RULES) -> torch.Tensor:
+    seq = ("seq",) * (x.ndim - 2)
+    h = rules.constrain(x @ params["w_in"], "batch", *seq, "ff")
     if "w_gate" in params:
         h = F.silu(x @ params["w_gate"]) * h
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
-    return h @ params["w_out"]
+    return rules.constrain(h @ params["w_out"], "batch", *seq, "embed_act")
 
 
 # ---------------------------------------------------------------------------
@@ -137,13 +141,22 @@ def embedding_init(gen: torch.Generator, vocab: int, d_model: int, *,
                                 device=device)}
 
 
-def embedding_lookup(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+def embedding_lookup(params: dict, tokens: torch.Tensor,
+                     rules: AxisRules = _NULL_RULES) -> torch.Tensor:
+    if not rules.enabled:
+        return params["table"][tokens.long()]
+    # F.embedding, the gather DTensor shards over a vocab-split table; the
+    # table's embed columns are gathered first (DTensor's masked partial
+    # sum over vocab shards keeps the token mask of the rows it had before
+    # it gathers them over a second mesh dim, and then fails on the shapes)
+    table = rules.constrain(params["table"], "vocab", None)
+    return rules.constrain(F.embedding(tokens.long(), table), "batch", "seq", "embed_act")
 
 
-def lm_head_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def lm_head_apply(table: torch.Tensor, x: torch.Tensor,
+                  rules: AxisRules = _NULL_RULES) -> torch.Tensor:
     """Project hidden states to vocab logits (weights (vocab, d_model))."""
-    return x @ table.T
+    return rules.constrain(x @ table.T, "batch", *("seq",) * (x.ndim - 2), "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -157,9 +170,11 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     labels (B,S); with ``mask`` (B,S), the mean over the masked-in
     positions (at least one)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = torch.gather(logits, -1, labels.long()[..., None])
+    # the difference before the select: on vocab-split DTensor logits the
+    # gather's masked partial sums are reduced at the gathered shape
+    nll = (logz - gold)[..., 0]
     if mask is not None:
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.models import layers
+from repro_torch.parallel.sharding_rules import AxisRules
 
 # time steps whose scan terms are materialised at once: bounds the extra
 # memory to 3 * B * SCAN_CHUNK * E * N fp32 values
@@ -46,24 +47,39 @@ def mamba_init(gen: torch.Generator, d_model: int, cfg: SSMConfig, *,
     }
 
 
-def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal convolution in fp32.  x (B,S,E), w (W,E) -> (B,S,E).
+def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 rules: AxisRules = layers._NULL_RULES) -> torch.Tensor:
+    """Depthwise causal conv over the sequence: x (B,S,E), w (W,E), b (E,).
 
     Like ``lax.conv_general_dilated`` it is a cross-correlation (the kernel
     is not flipped): out[t] = sum_j w[j] * x[t - W + 1 + j], zero before 0.
+    Under enabled rules it is W shifted multiply-adds over the zero-padded
+    sequence, which keep E split where it is split over a mesh (DTensor's
+    convolution rule would hand each shard of the channels the whole
+    channel count as its group count).
     """
     W, S = w.shape[0], x.shape[1]
-    lhs = x.float().transpose(1, 2)                 # (B,E,S)
-    rhs = w.float().t()[:, None, :]                 # (E,1,W)
-    out = F.conv1d(lhs, rhs, padding=W - 1, groups=x.shape[-1])[..., :S]
-    return (out.transpose(1, 2) + b).to(x.dtype)
+    if not rules.enabled:
+        lhs = x.float().transpose(1, 2)                 # (B,E,S)
+        rhs = w.float().t()[:, None, :]                 # (E,1,W)
+        out = F.conv1d(lhs, rhs, padding=W - 1, groups=x.shape[-1])[..., :S]
+        return (out.transpose(1, 2) + b).to(x.dtype)
+    xp = F.pad(x.float(), (0, 0, W - 1, 0))         # (B, W-1+S, E)
+    wf = w.float()
+    out = xp[:, :S] * wf[0]
+    for j in range(1, W):
+        out = out + xp[:, j:j + S] * wf[j]
+    return (out + b).to(x.dtype)
 
 
-def _ssm_params(params, xc, d_model, cfg):
-    """xc (..., E) -> dt (..., E), Bp (..., N), Cp (..., N), all fp32."""
+def _ssm_params(params, xc, d_model, cfg, rules: AxisRules):
+    """xc (B, [S,] E) -> dt (..., E), Bp (..., N), Cp (..., N), all fp32."""
     N = cfg.state_dim
     R = _dt_rank(d_model, cfg)
-    dbc = xc @ params["x_proj"]
+    # laid out by batch (and sequence): a sum over the split E that DTensor
+    # would otherwise reduce-scatter over the sequence, which the scan's
+    # per-chunk product flattens into a strided shard (a planner search)
+    dbc = rules.constrain(xc @ params["x_proj"], "batch", *("seq",) * (xc.ndim - 2), None)
     dt_x, Bp, Cp = torch.split(dbc, [R, N, N], dim=-1)
     dt = F.softplus(dt_x @ params["dt_proj"] + params["dt_bias"])
     return dt.float(), Bp.float(), Cp.float()
@@ -75,20 +91,23 @@ def _scan(dt, Bp, Cp, xcf, A):
     B, S, E = dt.shape
     h = torch.zeros((B, E, A.shape[1]), dtype=torch.float32, device=dt.device)
     ys = []
-    for t0 in range(0, S, SCAN_CHUNK):
-        sl = slice(t0, t0 + SCAN_CHUNK)
-        dtc = dt[:, sl, :, None]
+    # split and unbind once, not a slice a chunk and a step: the gradient of
+    # a slice is as long as the sequence, and summing one a step is
+    # quadratic in the backward
+    for dtc, Bc, Cc, xc in zip(*(a.split(SCAN_CHUNK, dim=1) for a in (dt, Bp, Cp, xcf))):
+        dtc = dtc[..., None]
         dA = torch.exp(dtc * A)                                   # (B,c,E,N)
-        dBx = dtc * Bp[:, sl, None, :] * xcf[:, sl, :, None]
+        dBx = dtc * Bc[:, :, None, :] * xc[..., None]
         hs = []
-        for i in range(dA.shape[1]):
-            h = torch.addcmul(dBx[:, i], h, dA[:, i])             # h*dA + dBx
+        for dBx_i, dA_i in zip(dBx.unbind(1), dA.unbind(1)):
+            h = torch.addcmul(dBx_i, h, dA_i)                     # h*dA + dBx
             hs.append(h)
-        ys.append(torch.einsum("bten,btn->bte", torch.stack(hs, dim=1), Cp[:, sl]))
+        ys.append(torch.einsum("bten,btn->bte", torch.stack(hs, dim=1), Cc))
     return torch.cat(ys, dim=1), h
 
 
-def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
+def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
+                rules: AxisRules = layers._NULL_RULES, *,
                 ssm_state=None, conv_state=None, return_state: bool = False):
     """x (B,S,D).  With states given (decode), S must be 1.
 
@@ -99,14 +118,14 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
     B, S, D = x.shape
     W = cfg.conv_width
 
-    xz = x @ params["in_proj"]
+    xz = rules.constrain(x @ params["in_proj"], "batch", "seq", "inner")
     x1, z = xz.chunk(2, dim=-1)
     A = -torch.exp(params["A_log"])                               # (E,N)
 
     if ssm_state is None:
         # --- full-sequence path -------------------------------------------
-        xc = F.silu(_conv_causal(x1, params["conv_w"], params["conv_b"]))
-        dt, Bp, Cp = _ssm_params(params, xc, D, cfg)
+        xc = F.silu(_conv_causal(x1, params["conv_w"], params["conv_b"], rules))
+        dt, Bp, Cp = _ssm_params(params, xc, D, cfg, rules)
         xcf = xc.float()
         ys, new_ssm = _scan(dt, Bp, Cp, xcf, A)
         y = ys + params["D"] * xcf                                # (B,S,E)
@@ -123,7 +142,7 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
         xc = torch.einsum("bwe,we->be", window.float(),
                           params["conv_w"].float()) + params["conv_b"]
         xc = F.silu(xc)                                           # (B,E)
-        dt, Bp, Cp = _ssm_params(params, xc, D, cfg)
+        dt, Bp, Cp = _ssm_params(params, xc, D, cfg, rules)
         dA = torch.exp(dt[..., None] * A)
         dBx = dt[..., None] * Bp[:, None, :] * xc.float()[..., None]
         new_ssm = ssm_state * dA + dBx
@@ -132,7 +151,7 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
         new_conv = window[:, 1:]
 
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ params["out_proj"]
+    out = rules.constrain(y @ params["out_proj"], "batch", "seq", "embed_act")
     if return_state:
         return out, new_ssm, new_conv
     return out

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import layers
+from repro_torch.parallel.sharding_rules import AxisRules
 
 
 def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *, gated: bool,
@@ -46,7 +47,8 @@ def _top_k(probs: torch.Tensor, k: int):
     return w[..., :k], idx[..., :k]
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
+def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
+              rules: AxisRules = layers._NULL_RULES, *,
               capacity_factor: float = 1.25, group_size: int = 512):
     """x (B,S,D) -> (output (B,S,D), aux load-balance loss, a scalar).
 
@@ -64,7 +66,11 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     C = max(1, int(capacity_factor * S * K / E))
 
     router_logits = x.float() @ params["router"].float()            # (B,S,E)
-    probs = torch.softmax(router_logits, dim=-1)
+    # laid out by batch, and so its gradient: the top-k's and the aux loss's
+    # would come back split over the group's tokens, which the router's
+    # product then flattens into a strided shard, and DTensor plans every
+    # redistribute of one by a search (minutes a layer on a 16 x 16 mesh)
+    probs = rules.constrain(torch.softmax(router_logits, dim=-1), "batch", None, None)
     gate_w, gate_idx = _top_k(probs, K)                               # (B,S,K)
     gate_w = gate_w / torch.clamp(gate_w.sum(dim=-1, keepdim=True), min=1e-9)
 
@@ -85,6 +91,7 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     combine = torch.einsum("bske,bskc->bsec", slot_onehot * gate_w[..., None], cap_onehot)
 
     expert_in = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
+    expert_in = rules.constrain(expert_in, "batch", "expert", None, "embed_act")
     xe = expert_in.permute(1, 0, 2, 3).reshape(E, B * C, D)          # (E, B*C, D)
     h = torch.bmm(xe, params["w_in"])
     if "w_gate" in params:
@@ -92,14 +99,22 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
     expert_out = torch.bmm(h, params["w_out"]).reshape(E, B, C, D).permute(1, 0, 2, 3)
+    expert_out = rules.constrain(expert_out, "batch", "expert", None, "embed_act")
 
-    y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), expert_out)
+    if rules.enabled:
+        # einsum's product over (e, c), written out: its own permute and
+        # view of the expert-split operand leave DTensor a strided shard (a
+        # planner search, ~50 s a layer on a 16 x 16 mesh)
+        y = torch.bmm(combine.to(x.dtype).reshape(B, S, E * C),
+                      expert_out.contiguous().reshape(B, E * C, D))
+    else:
+        y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), expert_out)
 
     if cfg.dense_residual:
-        y = y + layers.mlp_apply(params["dense"], x)
+        y = y + layers.mlp_apply(params["dense"], x, rules)
 
     # Switch-style load-balance aux loss over the top-1 slot.
     frac_tokens = slot_onehot[:, :, 0, :].mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
     aux = E * (frac_tokens * frac_probs).sum()
-    return y.reshape(B0, S0, D), aux
+    return rules.constrain(y.reshape(B0, S0, D), "batch", "seq", "embed_act"), aux

@@ -32,7 +32,12 @@ class RunConfig:
     """Runtime knobs orthogonal to the architecture.
 
     ``rules`` maps logical axes to mesh axes (``AxisRules.null()``: no
-    sharding); the models do not read it yet.  ``decode_attn="sharded"``
+    sharding).  The models lay their activations out by it at the JAX
+    package's 17 ``rules.constrain`` sites: on DTensor activations each is
+    a redistribute, and a plain tensor, or any tensor under disabled rules,
+    passes unchanged.  ``attn_expand_kv`` repeats k/v to the query heads
+    before the attention kernel (the JAX ``gqa_grouped=False``), so that a
+    head dim split over ``model`` stays local.  ``decode_attn="sharded"``
     decodes through ``attention.decode_attention_sharded`` over ``mesh``
     (a ``DeviceMesh`` with a ``model`` dim), each rank holding its own
     batch rows (split over ``dp_axes``) and its sequence slab of every
@@ -51,6 +56,7 @@ class RunConfig:
     dp_axes: tuple = ("data",)
     moe_aux_weight: float = 0.01
     moe_group_size: int = 512
+    attn_expand_kv: bool = False  # True on the pod path (see attention.expand_kv)
 
 
 # ---------------------------------------------------------------------------
@@ -204,17 +210,48 @@ def cache_logical_axes(cfg: ArchConfig) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _project(x, w, rules: AxisRules, heads_axis: str):
+    """x (B,S,d) by w (d,h,k) -> (B,S,h,k), laid out (batch, seq,
+    ``heads_axis``, head_dim).  The product runs over the flattened (h*k)
+    columns, as ``einsum`` runs it, and the columns (of the weight, and so
+    of its gradient) are laid out by the heads axis before they are split
+    into heads: DTensor cannot split a dim that its shards cut across (4 KV
+    heads over 16 ranks)."""
+    B, S, d = x.shape
+    _, h, k = w.shape
+    w2 = rules.constrain(w.reshape(d, h * k), "embed", heads_axis)
+    y = rules.constrain(x @ w2, "batch", "seq", heads_axis)
+    return rules.constrain(y.view(B, S, h, k), "batch", "seq", heads_axis, "head_dim")
+
+
+def _unproject(o, w, rules: AxisRules):
+    """o (B,S,h,k) by w (h,k,d) -> (B,S,d), the product over the flattened
+    (h*k) rows, laid out by the heads as ``_project``'s columns (einsum's
+    own views of a gradient split over 16 ranks fail where 24 or 56 heads
+    do not divide)."""
+    B, S, h, k = o.shape
+    o2 = rules.constrain(o.reshape(B, S, h * k), "batch", "seq", "heads")
+    return o2 @ rules.constrain(w.reshape(h * k, w.shape[-1]), "heads", "embed")
+
+
 def _attn_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, *, positions,
                 cache=None, t=None, build_cache=False):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    rules = rcfg.rules
+    q = _project(x, p["wq"], rules, "heads")
+    k = _project(x, p["wk"], rules, "kv_heads")
+    v = _project(x, p["wv"], rules, "kv_heads")
     q = attn_lib.apply_rope(q, positions, cfg.rope_theta)
     k = attn_lib.apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is None:
-        o = attn_lib.flash_attention(q, k, v, causal=True, q_block=rcfg.q_block,
+        qk, qv = k, v
+        if rcfg.attn_expand_kv:
+            # laid out by the query heads: a head split over 'model' keeps
+            # its own k/v heads (JAX's gqa_grouped=False)
+            qk, qv = (rules.constrain(attn_lib.expand_kv(a, cfg.num_heads),
+                                      "batch", "seq", "heads", "head_dim") for a in (k, v))
+        o = attn_lib.flash_attention(q, qk, qv, causal=True, q_block=rcfg.q_block,
                                      kv_block=rcfg.kv_block)
         if build_cache:
             new_cache = {"k": k.to(rcfg.cache_dtype), "v": v.to(rcfg.cache_dtype)}
@@ -233,8 +270,8 @@ def _attn_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, *, positions,
             raise ValueError(f"decode_attn must be local or sharded; "
                              f"got {rcfg.decode_attn!r}")
         new_cache = {"k": kc, "v": vc}
-    out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
-    return out, new_cache
+    out = _unproject(o.to(x.dtype), p["wo"], rules)
+    return rules.constrain(out, "batch", "seq", "embed_act"), new_cache
 
 
 def _block_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, pos: int, *,
@@ -252,37 +289,37 @@ def _block_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, pos: int, *,
     elif btype == "mamba":
         if want_state:
             h, ssm, conv = mamba_lib.mamba_apply(
-                p["mamba"], xn, cfg.ssm,
+                p["mamba"], xn, cfg.ssm, rcfg.rules,
                 ssm_state=cache["ssm"] if decode else None,
                 conv_state=cache["conv"] if decode else None, return_state=True)
             new_cache = {"ssm": ssm, "conv": conv}
         else:
-            h = mamba_lib.mamba_apply(p["mamba"], xn, cfg.ssm)
+            h = mamba_lib.mamba_apply(p["mamba"], xn, cfg.ssm, rcfg.rules)
     elif btype == "slstm":
         if want_state:
             h, new_cache = xlstm_lib.slstm_apply(
-                p["cell"], xn, cfg.num_heads, state=cache if decode else None,
+                p["cell"], xn, cfg.num_heads, rcfg.rules, state=cache if decode else None,
                 return_state=True)
         else:
-            h = xlstm_lib.slstm_apply(p["cell"], xn, cfg.num_heads)
+            h = xlstm_lib.slstm_apply(p["cell"], xn, cfg.num_heads, rcfg.rules)
     elif btype == "mlstm":
         if want_state:
             h, new_cache = xlstm_lib.mlstm_apply(
-                p["cell"], xn, cfg.num_heads, cfg.xlstm,
+                p["cell"], xn, cfg.num_heads, cfg.xlstm, rcfg.rules,
                 state=cache if decode else None, return_state=True)
         else:
-            h = xlstm_lib.mlstm_apply(p["cell"], xn, cfg.num_heads, cfg.xlstm)
+            h = xlstm_lib.mlstm_apply(p["cell"], xn, cfg.num_heads, cfg.xlstm, rcfg.rules)
     else:
         raise ValueError(btype)
     x = x + h
     if _has_ffn(cfg, pos):
         xn2 = layers.rmsnorm_apply(p["norm2"], x, eps=cfg.norm_eps)
         if _is_moe(cfg, pos):
-            y, aux = moe_lib.moe_apply(p["ffn"], xn2, cfg.moe,
+            y, aux = moe_lib.moe_apply(p["ffn"], xn2, cfg.moe, rcfg.rules,
                                        capacity_factor=rcfg.capacity_factor,
                                        group_size=rcfg.moe_group_size)
         else:
-            y = layers.mlp_apply(p["ffn"], xn2)
+            y = layers.mlp_apply(p["ffn"], xn2, rcfg.rules)
         x = x + y
     return x, aux, new_cache
 
@@ -342,10 +379,14 @@ def _remat_layers(blocks, x, cfg: ArchConfig, rcfg: RunConfig, positions):
 
 
 def _embed_inputs(params, batch, cfg: ArchConfig, rcfg: RunConfig):
-    x = layers.embedding_lookup(params["embed"], batch["tokens"])
+    x = layers.embedding_lookup(params["embed"], batch["tokens"], rcfg.rules)
     if cfg.frontend:
-        fe = torch.einsum("bsf,fd->bsd", batch["embeds"].to(x.dtype),
-                          params["frontend_proj"])
+        # laid out as the embedding: DTensor would leave the projection a
+        # partial sum, which the first RMSNorm reduce-scatters over the
+        # sequence, and the next product flattens into a strided shard
+        fe = rcfg.rules.constrain(torch.einsum("bsf,fd->bsd", batch["embeds"].to(x.dtype),
+                                               params["frontend_proj"]),
+                                  "batch", "seq", "embed_act")
         x = x + fe
     return x.to(rcfg.compute_dtype)
 
@@ -384,7 +425,7 @@ def forward(params, batch, cfg: ArchConfig, rcfg: RunConfig, *,
     if last_only:
         x = x[:, -1:]
     x = layers.rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
-    logits = layers.lm_head_apply(params["lm_head"], x)
+    logits = layers.lm_head_apply(params["lm_head"], x, rcfg.rules)
     return logits, aux, caches
 
 

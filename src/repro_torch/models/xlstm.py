@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import XLSTMConfig
 from repro_torch.models import layers
+from repro_torch.parallel.sharding_rules import AxisRules
 
 # ---------------------------------------------------------------------------
 # sLSTM
@@ -60,20 +61,27 @@ def _slstm_cell(R: torch.Tensor, wx_t: torch.Tensor, state: dict, num_heads: int
     return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
-def slstm_apply(params: dict, x: torch.Tensor, num_heads: int, *, state=None,
+def slstm_apply(params: dict, x: torch.Tensor, num_heads: int,
+                rules: AxisRules = layers._NULL_RULES, *, state=None,
                 return_state: bool = False):
     B, S, D = x.shape
-    wx = x @ params["W"] + params["b"]                             # (B,S,4D)
+    # batch rows per rank, every gate column on each (one gather before the
+    # loop): the steps then run locally, where DTensor would redistribute
+    # a partial or column-split wx at every step
+    wx = rules.constrain(x @ params["W"] + params["b"], "batch", "seq", None)  # (B,S,4D)
     if state is None:
         state = slstm_init_state(B, D, device=x.device)
     R = params["R"].float()  # the fp32 state meets R in fp32, as in JAX
     hs = []
-    for t in range(S):
-        state = _slstm_cell(R, wx[:, t], state, num_heads)
+    # one unbind, not a slice a step: the gradient of a slice is a
+    # sequence-long tensor, and S of them summed cost S^2 in the backward
+    for wx_t in wx.unbind(1):
+        state = _slstm_cell(R, wx_t, state, num_heads)
         hs.append(state["h"])
     h = torch.stack(hs, dim=1).to(x.dtype)                         # (B,S,D)
     u = F.gelu(h @ params["up"], approximate="tanh")  # jax.nn.gelu's default form
-    out = u @ params["down"]
+    u = rules.constrain(u, "batch", "seq", "inner")
+    out = rules.constrain(u @ params["down"], "batch", "seq", "embed_act")
     if return_state:
         return out, state
     return out
@@ -125,15 +133,18 @@ def _mlstm_step(state: dict, q_t, k_t, v_t, i_t, f_t):
     return {"C": C_new, "n": n_new, "m": m_new}, num / den[..., None]
 
 
-def mlstm_apply(params: dict, x: torch.Tensor, num_heads: int, cfg: XLSTMConfig, *,
+def mlstm_apply(params: dict, x: torch.Tensor, num_heads: int, cfg: XLSTMConfig,
+                rules: AxisRules = layers._NULL_RULES, *,
                 state=None, return_state: bool = False):
     B, S, D = x.shape
     E = _round64(cfg.proj_factor_mlstm * D)
     H, dh = num_heads, E // num_heads
 
-    xz = x @ params["in_proj"]
+    xz = rules.constrain(x @ params["in_proj"], "batch", "seq", "inner")
     xi, z = xz.chunk(2, dim=-1)
-    xih = xi.reshape(B, S, H, dh)
+    # laid out by the heads before the split into them (4 heads cannot
+    # stay split over 16 ranks)
+    xih = rules.constrain(xi, "batch", "seq", "heads").reshape(B, S, H, dh)
     q = torch.einsum("bshd,hde->bshe", xih, params["Wq"]).float()
     k = (torch.einsum("bshd,hde->bshe", xih, params["Wk"]) / (dh ** 0.5)).float()
     v = torch.einsum("bshd,hde->bshe", xih, params["Wv"]).float()
@@ -144,12 +155,12 @@ def mlstm_apply(params: dict, x: torch.Tensor, num_heads: int, cfg: XLSTMConfig,
     if state is None:
         state = mlstm_init_state(B, H, dh, device=x.device)
     hs = []
-    for t in range(S):
-        state, h_t = _mlstm_step(state, q[:, t], k[:, t], v[:, t], i_t[:, t], f_t[:, t])
+    for step in zip(*(a.unbind(1) for a in (q, k, v, i_t, f_t))):  # as in sLSTM
+        state, h_t = _mlstm_step(state, *step)
         hs.append(h_t)
     h = torch.stack(hs, dim=1).reshape(B, S, E).to(x.dtype)
-    h = h * F.silu(z)
-    out = h @ params["out_proj"]
+    h = rules.constrain(h, "batch", "seq", "heads") * F.silu(z)  # its gradient too
+    out = rules.constrain(h @ params["out_proj"], "batch", "seq", "embed_act")
     if return_state:
         return out, state
     return out

@@ -140,7 +140,9 @@ class AxisRules:
     def constrain(self, x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
         """Lay a DTensor out by its logical axes (a redistribute); a plain
         tensor is returned unchanged, and so is everything when the rules
-        are disabled."""
+        are disabled.  A dim that its mesh dims do not divide stays
+        replicated (GSPMD would pad it; e.g. the MoE groups of a small
+        batch)."""
         if not self.enabled:
             return x
         if len(logical_axes) != x.ndim:
@@ -151,7 +153,14 @@ class AxisRules:
         if not isinstance(x, DTensor):
             return x
         mesh = x.device_mesh
-        return x.redistribute(mesh, placements(mesh, self.spec(logical_axes), x.shape))
+        names = list(mesh.mesh_dim_names or ())
+        spec = []
+        for n, entry in zip(x.shape, self.spec(logical_axes)):
+            shards = 1
+            for a in _names(entry):
+                shards *= mesh.size(names.index(a)) if a in names else 1
+            spec.append(entry if n % shards == 0 else None)
+        return x.redistribute(mesh, placements(mesh, spec, x.shape))
 
 
 def _is_axes(v) -> bool:

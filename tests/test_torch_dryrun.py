@@ -1,0 +1,298 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) against the JAX
+package's ``launch/dryrun.py``.
+
+``DryRunOptions.tag()`` and ``build_rules`` are held to JAX's under every
+option, for every arch and shape, on meshes of the production shapes (the
+rules read only the mesh's dim names and sizes).  One child process, under
+torch's ``fake`` process group, runs the counterpart of
+``tests/test_multidevice.py::test_small_mesh_dryrun_end_to_end`` on a (2, 4)
+mesh, then ``run_cell`` at full size for yi-9b and xlstm-350m
+``train_4k`` on the 256-rank production mesh, then one block of five
+cells whose layouts DTensor once planned by search or split at every time
+step; it reports its records, its peak resident memory, the blocks' graph
+sizes and the modules it imported.  The JAX side's small-mesh
+test fails on every recorded run of this repo, so the port's is held to the
+port alone.  Last, GSPMD's collectives of the reduced losses beside
+DTensor's (a child process each).
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from types import SimpleNamespace
+
+import pytest
+pytest.importorskip("torch")  # the port's tests need torch; the reference's CI has none
+from jax.sharding import AbstractMesh
+
+from repro.configs.base import SHAPES as JAX_SHAPES
+from repro.configs.base import get_arch as jax_get_arch
+from repro.launch.dryrun import DryRunOptions as JaxOptions
+from repro.launch.dryrun import build_rules as jax_build_rules
+from repro_torch.configs.base import get_arch, list_archs
+from repro_torch.launch.dryrun import DryRunOptions, build_rules
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHILD_TIMEOUT = 300
+FULL_CELLS = (("yi-9b", "train_4k"), ("xlstm-350m", "train_4k"))
+# one block of a cell on the 256-rank mesh (arch, shape, blocks, length):
+# each was a layout DTensor could not plan in seconds or that moved data at
+# every time step (a strided shard planned by search, a partial sum split
+# over the sequence): the MoE router's gradient, the MoE combine, mamba's
+# state projection, a frontend's projection, sLSTM's gate inputs
+LAYER_CASES = (("grok-1-314b", "train_4k", 1, 512), ("arctic-480b", "prefill_32k", 1, None),
+               ("jamba-1.5-large-398b", "prefill_32k", 1, 256),
+               ("musicgen-medium", "prefill_32k", 0, None), ("xlstm-350m", "prefill_32k", 1, 64))
+LAYER_NODES = 5000  # before the repairs: 47,662 (jamba) and 100,369 (arctic)
+# JAX's record keys, less compile_s (nothing compiles)
+RECORD_KEYS = {"arch", "shape", "mesh", "n_chips", "options", "lower_s", "memory_analysis",
+               "hlo_bytes", "collective_bytes", "collective_counts", "jaxpr_cost_s",
+               "roofline", "xla_cost_analysis"}
+ROOFLINE_KEYS = {"compute_s", "memory_s", "collective_s", "dominant", "flops_per_chip",
+                 "bytes_per_chip", "coll_bytes_per_chip", "model_flops",
+                 "useful_flops_fraction", "roofline_fraction", "n_chips",
+                 "bytes_raw_per_chip", "memory_raw_s", "collective_source"}
+
+
+def _meshes(multi_pod: bool):
+    """A JAX abstract mesh and a stand-in for the port's ``DeviceMesh``
+    with the same dims (all that ``build_rules`` reads)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    port = SimpleNamespace(mesh_dim_names=names, size=lambda i: shape[i])
+    return AbstractMesh(shape, names), port
+
+
+OPTION_CASES = [dict(), dict(multi_pod=True), dict(fsdp=False), dict(fsdp_over_pod=True),
+                dict(multi_pod=True, fsdp_over_pod=True), dict(dp_over_model=True),
+                dict(multi_pod=True, dp_over_model=True, fsdp=False),
+                dict(microbatches=4, opt_dtype="bf16", remat="full", q_block=512,
+                     kv_block=256, moe_group=256, capacity_factor=2.0, scan_layers=False,
+                     donate=False)]
+
+
+def test_options_have_jaxs_fields_defaults_and_tags():
+    assert ([(f.name, f.default) for f in dataclasses.fields(DryRunOptions)]
+            == [(f.name, f.default) for f in dataclasses.fields(JaxOptions)])
+    for kw in OPTION_CASES:
+        assert DryRunOptions(**kw).tag() == JaxOptions(**kw).tag(), kw
+
+
+@pytest.mark.parametrize("kw", OPTION_CASES, ids=lambda kw: DryRunOptions(**kw).tag())
+def test_build_rules_equal_jaxs(kw):
+    opts, jopts = DryRunOptions(**kw), JaxOptions(**kw)
+    jmesh, mesh = _meshes(opts.multi_pod)
+    for arch in list_archs():
+        for shape in get_arch(arch).shapes():
+            got = build_rules(get_arch(arch), shape, mesh, opts)
+            want = jax_build_rules(jax_get_arch(arch), JAX_SHAPES[shape.name], jmesh, jopts)
+            assert (got.enabled, dict(got.rules)) == (want.enabled, dict(want.rules)), \
+                (arch, shape.name)
+
+
+_CHILD = r"""
+import json, resource, sys
+import torch
+from repro_torch import tree as tree_lib
+from repro_torch.configs.base import get_arch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+from repro_torch.models.model_zoo import build_model
+from repro_torch.models.transformer import RunConfig
+from repro_torch.parallel.sharding_rules import AxisRules, PartitionSpec, tree_specs
+from repro_torch.roofline.analysis import collective_bytes
+from repro_torch.roofline.graph_cost import graph_cost, layer_kinds, peak_live_bytes, variant
+
+out = {}
+# the counterpart of test_small_mesh_dryrun_end_to_end: reduced yi-9b's loss
+# on a (2, 4) mesh of the fake group, rank 0's program and the global cost
+dryrun.ensure_world(8)
+mesh = make_test_mesh(2, 4, device="cpu")
+rules = AxisRules.pod()
+m = build_model("yi-9b", RunConfig(rules=rules, attn_expand_kv=True, mesh=mesh, q_block=8,
+                                   kv_block=8), reduced=True, device="meta")
+params, axes = m.abstract_params()
+batch = {k: torch.empty(8, 16, dtype=torch.int32, device="meta") for k in ("tokens", "labels")}
+cell = dryrun.Cell(lambda p, b: m.loss(p, b)[0], (params, batch),
+                   (tree_specs(axes, rules), {k: PartitionSpec("data", None) for k in batch}))
+gm = dryrun.trace_rank0(cell, mesh)
+coll = collective_bytes(gm)
+out["small"] = {"flops": graph_cost(dryrun.trace_global(cell)).flops, "coll": coll,
+                "memory": peak_live_bytes(gm),
+                "argument": dryrun._sharded_bytes(cell, mesh),
+                "whole": sum(t.numel() * t.element_size() for t in tree_lib.leaves(params))}
+rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+out["cells"] = [dryrun.run_cell(a, s, dryrun.DryRunOptions(), verbose=False)
+                for a, s in CELLS]
+out["rss_growth"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 - rss0
+mesh = make_production_mesh(device="cpu")
+out["layers"] = []
+for arch, shape, blocks, L in LAYERS:
+    cfg = get_arch(arch)
+    cell = dryrun.build_cell(arch, shape, mesh, dryrun.DryRunOptions(),
+                             cfg=variant(cfg, tuple(layer_kinds(cfg)[:blocks])), seq_len=L)
+    gm = dryrun.trace_rank0(cell, mesh)
+    out["layers"].append((len(gm.graph.nodes), sum(collective_bytes(gm)["counts"].values())))
+out["modules"] = sorted(n for n in sys.modules
+                        if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def child():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    code = f"CELLS = {FULL_CELLS!r}\nLAYERS = {LAYER_CASES!r}\n" + _CHILD
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                       timeout=CHILD_TIMEOUT)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def test_small_mesh_dryrun_end_to_end(child):
+    """Reduced yi-9b's loss on a (2, 4) mesh: the walker counts work, rank
+    0's program moves data, and the memory estimates are there; rank 0
+    holds less than the whole parameter set."""
+    small = child["small"]
+    assert small["flops"] > 0
+    assert small["coll"]["total"] > 0
+    assert small["coll"]["total"] == sum(small["coll"][k] for k in (
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute"))
+    assert set(small["memory"]) == {"argument", "temp"} and small["memory"]["temp"] > 0
+    assert 0 < small["argument"] < small["whole"]
+
+
+@pytest.mark.parametrize("i", range(len(FULL_CELLS)), ids=["-".join(c) for c in FULL_CELLS])
+def test_full_size_cell_record_has_jaxs_keys(child, i):
+    rec = child["cells"][i]
+    assert (rec["arch"], rec["shape"]) == FULL_CELLS[i]
+    assert set(rec) == RECORD_KEYS
+    assert rec["n_chips"] == 256 and rec["mesh"] == "16x16 (data,model)"
+    assert set(rec["roofline"]) == ROOFLINE_KEYS
+    assert rec["roofline"]["flops_per_chip"] > 0 and rec["roofline"]["collective_s"] > 0
+    mem = rec["memory_analysis"]
+    assert mem["argument_size_in_bytes"] > 0 and mem["temp_size_in_bytes"] > 0
+    assert rec["collective_bytes"]["total"] > 0
+    # rank 0's products: some, and no more than the whole step's
+    flops = rec["roofline"]["flops_per_chip"] * rec["n_chips"]
+    assert 0 < rec["xla_cost_analysis"]["flops"] <= flops
+    # xLSTM's cells are extrapolated from two lengths, and the record says so
+    assert ("extrapolated" in rec["roofline"]["collective_source"]) == (i == 1)
+    # the walker's global count against 6 N T, in the band of the JAX
+    # walker against XLA (tests/test_roofline.py): attention and remat add
+    # to it, the embedding's parameters cost no products
+    model_flops = rec["roofline"]["model_flops"]
+    assert 0.5 < rec["roofline"]["flops_per_chip"] * 256 / model_flops < 2.0
+
+
+def test_full_size_cells_allocate_no_storage(child):
+    """Both full-size cells together grow the child's peak resident memory
+    by less than rank 0's shards of one of them: every tensor is ``meta``."""
+    least = min(rec["memory_analysis"]["argument_size_in_bytes"] for rec in child["cells"])
+    assert child["rss_growth"] < least, (child["rss_growth"], least)
+
+
+@pytest.mark.parametrize("i", range(len(LAYER_CASES)),
+                         ids=["-".join(map(str, c[:3])) for c in LAYER_CASES])
+def test_one_block_traces_in_a_bounded_graph(child, i):
+    """Rank 0's program of one block on the 256-rank mesh stays small, with
+    fewer collectives than positions (none at every time step); no layout
+    is left to DTensor's search planner (which also bounds the child's
+    run)."""
+    nodes, collectives = child["layers"][i]
+    length = LAYER_CASES[i][3]
+    assert 0 < nodes < LAYER_NODES, (LAYER_CASES[i], nodes)
+    assert length is None or collectives < length, (LAYER_CASES[i], collectives)
+
+
+def test_dryrun_imports_neither_jax_nor_the_jax_package(child):
+    assert child["modules"] == []
+
+
+# GSPMD's and DTensor's collectives of the same programs: the losses of the
+# reduced archs, 8 x 16 tokens on a (data 2, model 4) mesh under
+# AxisRules.pod() with attn_expand_kv, as tests/test_multidevice.py's
+# small-mesh dry-run builds them.  The JAX package's loss is compiled on 8
+# host devices with Auto axes (GSPMD places its collectives) and read by its
+# own collective_bytes; the port's is rank 0's DTensor program under the
+# fake group.  Each side runs in a child of its own.
+GSPMD_ARCHS = ("yi-9b", "grok-1-314b", "jamba-1.5-large-398b", "xlstm-350m")
+_GSPMD = r"""
+import json, os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax, jax.numpy as jnp
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.models.model_zoo import build_model
+from repro.models.transformer import RunConfig
+from repro.parallel.sharding_rules import AxisRules, tree_specs
+from repro.roofline.analysis import collective_bytes
+
+mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+rules = AxisRules.pod()
+out = {}
+for arch in ARCHS:
+    m = build_model(arch, RunConfig(rules=rules, attn_expand_kv=True, mesh=mesh, q_block=8,
+                                    kv_block=8), reduced=True)
+    psds, axes = m.abstract_params()
+    pshard = jax.tree.map(lambda s: NamedSharding(mesh, s), tree_specs(axes, rules))
+    batch = {k: jax.ShapeDtypeStruct((8, 16), jnp.int32) for k in ("tokens", "labels")}
+    bshard = {k: NamedSharding(mesh, P("data", None)) for k in batch}
+    with mesh:
+        compiled = jax.jit(lambda p, b: m.loss(p, b)[0],
+                           in_shardings=(pshard, bshard)).lower(psds, batch).compile()
+    out[arch] = collective_bytes(compiled.as_text())
+print(json.dumps(out))
+"""
+_DTENSOR = r"""
+import json
+import torch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models.model_zoo import build_model
+from repro_torch.models.transformer import RunConfig
+from repro_torch.parallel.sharding_rules import AxisRules, PartitionSpec, tree_specs
+from repro_torch.roofline.analysis import collective_bytes
+
+dryrun.ensure_world(8)
+mesh = make_test_mesh(2, 4, device="cpu")
+rules = AxisRules.pod()
+out = {}
+for arch in ARCHS:
+    m = build_model(arch, RunConfig(rules=rules, attn_expand_kv=True, mesh=mesh, q_block=8,
+                                    kv_block=8), reduced=True, device="meta")
+    params, axes = m.abstract_params()
+    batch = {k: torch.empty(8, 16, dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    cell = dryrun.Cell(lambda p, b: m.loss(p, b)[0], (params, batch),
+                       (tree_specs(axes, rules), {k: PartitionSpec("data", None) for k in batch}))
+    out[arch] = collective_bytes(dryrun.trace_rank0(cell, mesh))
+print(json.dumps(out))
+"""
+
+
+def test_gspmd_and_dtensor_collectives_of_the_small_mesh_losses():
+    """Both programs move data, and DTensor's differs from GSPMD's as the
+    roadmap records: reduce-scatters where GSPMD has none, and no
+    all-to-all and no collective-permute (GSPMD's are all-gathers and
+    local splits in DTensor).  Run with ``-s`` to read both sides."""
+    code = f"ARCHS = {GSPMD_ARCHS!r}\n"
+    sides = {}
+    for name, child_code, jax_side in (("gspmd", _GSPMD, True), ("dtensor", _DTENSOR, False)):
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+        if jax_side:
+            env["JAX_PLATFORMS"] = "cpu"
+        else:
+            env.pop("JAX_PLATFORMS", None)
+        r = subprocess.run([sys.executable, "-c", code + child_code], env=env,
+                           capture_output=True, text=True, timeout=CHILD_TIMEOUT)
+        assert r.returncode == 0, r.stderr[-4000:]
+        sides[name] = json.loads(r.stdout.strip().splitlines()[-1])
+    print(json.dumps(sides))
+    for arch in GSPMD_ARCHS:
+        gspmd, dtensor = sides["gspmd"][arch], sides["dtensor"][arch]
+        assert gspmd["total"] > 0 and dtensor["total"] > 0, arch
+        assert gspmd["counts"]["reduce-scatter"] == 0 < dtensor["counts"]["reduce-scatter"], arch
+        assert dtensor["counts"]["all-to-all"] == dtensor["counts"]["collective-permute"] == 0
+

@@ -251,17 +251,93 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_other_devices_and_bad_blocks_raise():
+    """A ``meta`` tensor has no kernel of its own: it reaches the registered
+    op, whose fake implementation gives shapes and dtypes (what a trace on
+    ``meta`` tensors needs); bad block sizes raise on every device."""
     x = torch.empty(3, 8, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.rmsnorm(x, torch.empty(8, device="meta"))
+    y = ops.rmsnorm(x, torch.empty(8, device="meta"))
+    assert (y.device.type, y.shape, y.dtype) == ("meta", x.shape, x.dtype)
     q = torch.empty(1, 16, 2, 16, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.flash_attention(q, q, q)
+    o = ops.flash_attention(q, q, q)
+    assert (o.device.type, o.shape, o.dtype) == ("meta", q.shape, q.dtype)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q, kv_block=0)
     with pytest.raises(ValueError):
         ops.flash_attention(torch.zeros(1, 4, 1, 16), torch.zeros(1, 4, 1, 16),
                             torch.zeros(1, 4, 1, 16), q_block=0)
     with pytest.raises(ValueError):
         ops.rmsnorm(torch.zeros(2, 4), torch.ones(4), row_block=0)
+
+
+class _OpLog(torch.utils._python_dispatch.TorchDispatchMode):
+    """Every op that reaches the dispatcher's Python mode, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _registered(names):
+    return sorted({n for n in names if n.startswith("repro_torch.")})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", [(2, 16, 16, 4, 2, 32), (1, 8, 24, 4, 4, 80)])
+def test_registered_ops_fake_shapes_are_the_cuda_wrappers(B, Sq, Sk, H, KV, hd, dtype):
+    """The fake implementations of the four registered ops give the shapes
+    and dtypes that the CUDA wrappers allocate (``flash_attention_cuda``:
+    o like q, lse (B, H, Sq) fp32; its backward dq, dk, dv like q, k, v;
+    ``rmsnorm_cuda`` y like x; its backward dx like x, dscale like scale),
+    and the CPU implementations (the plain versions) give the same."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    rop = torch.ops.repro_torch
+    qs, ks = (B, Sq, H, hd), (B, Sk, KV, hd)
+    want_fa = [(qs, dtype), ((B, H, Sq), torch.float32)]
+    want_bwd = [(qs, dtype), (ks, dtype), (ks, dtype)]
+    want_norm = [((B, Sq, 64), dtype)]
+    want_norm_bwd = [((B, Sq, 64), dtype), ((64,), torch.float32)]
+
+    def calls(device):
+        q, k, v = (torch.randn(s, device=device).to(dtype) for s in (qs, ks, ks))
+        o, lse = rop.flash_attention(q, k, v, True, 16, 16)
+        bwd = rop.flash_attention_bwd(q, k, v, o, lse, torch.randn_like(o), True, 16, 16)
+        x, scale = torch.randn(B, Sq, 64, device=device).to(dtype), torch.ones(64, device=device)
+        y = rop.rmsnorm(x, scale, 1e-5)
+        return ((o, lse), bwd, (y,), rop.rmsnorm_bwd(x, scale, torch.randn_like(y), 1e-5))
+
+    def meta(ts):
+        return [(tuple(t.shape), t.dtype) for t in ts]
+
+    with FakeTensorMode():
+        fake = calls("cpu")
+    for got in (calls("meta"), fake, calls("cpu")):
+        assert [meta(g) for g in got] == [want_fa, want_bwd, want_norm, want_norm_bwd]
+
+
+def test_plain_tensors_do_not_go_through_the_registered_ops():
+    """A plain CPU tensor takes the direct path (no dispatcher op of the
+    port's), forward and backward; a ``meta`` tensor takes the registered
+    op, and its gradient the registered backward op."""
+    q = torch.randn(1, 16, 2, 16, requires_grad=True)
+    x = torch.randn(3, 8, requires_grad=True)
+    for t in (q, x):
+        with _OpLog() as log:
+            y = ops.flash_attention(q, q, q) if t is q else ops.rmsnorm(x, torch.ones(8))
+            y.sum().backward()
+        assert _registered(log.names) == [], log.names
+    qm = torch.empty(1, 16, 2, 16, device="meta", requires_grad=True)
+    xm = torch.empty(3, 8, device="meta", requires_grad=True)
+    with _OpLog() as log:
+        torch.autograd.grad(ops.flash_attention(qm, qm, qm).sum(), qm)
+        torch.autograd.grad(ops.rmsnorm(xm, torch.ones(8, device="meta")).sum(), xm)
+    assert _registered(log.names) == [
+        "repro_torch.flash_attention.default", "repro_torch.flash_attention_bwd.default",
+        "repro_torch.rmsnorm.default", "repro_torch.rmsnorm_bwd.default"]
 
 
 @pytest.mark.parametrize("x,scale,err,match", [

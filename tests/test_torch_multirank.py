@@ -3,8 +3,9 @@ multi-device cases (``tests/test_multidevice.py``: sharded decode against
 local decode, the elastic remesh after a failure) and the checkpoint
 restored onto a mesh.
 
-One job of 8 ranks runs the decode, layout and elastic scenarios and one of
-4 ranks the restore; each test reads its part of a job's results.  Ranks
+One job of 8 ranks runs the decode, layout and elastic scenarios and the
+model's loss and gradients on DTensor parameters, and one of 4 ranks the
+restore; each test reads its part of a job's results.  Ranks
 meet through a ``FileStore`` in a fresh temporary directory, so
 concurrent runs share no port.
 """
@@ -22,6 +23,10 @@ B, S, H, KV, HD = 4, 32, 4, 2, 16   # the JAX test's sharded-decode inputs
 MESH = (2, 4)                        # (data, model)
 DECODE_TS = (0, 7, 8, 17, 31)        # 17 as in the JAX test; the rest at slab edges
 SERVE = dict(arch="yi-9b", batch=4, prompt_len=6, gen_len=10)  # decodes t = 6..15
+# the JAX small-mesh dry-run's batch; yi-9b and one arch of each other block
+# kind (MoE, mamba, xLSTM)
+LOSS = dict(archs=("yi-9b", "grok-1-314b", "jamba-1.5-large-398b", "xlstm-350m"),
+            batch=8, seq=16)
 JOB_TIMEOUT = 120
 
 
@@ -121,6 +126,9 @@ def _job8(rank, world):
     # -- a reduced model served with decode_attn="sharded" and "local" -------
     out["serve"] = _serve_both(mesh)
 
+    # -- a reduced model's loss and gradients on DTensor parameters ----------
+    out["dtensor_loss"] = _dtensor_loss_and_grads(mesh)
+
     # -- a dim split over two mesh dims, major to minor ----------------------
     pd = init_device_mesh("cpu", (2, 4), mesh_dim_names=("pod", "data"))
     x = torch.arange(16 * 3).reshape(16, 3)
@@ -191,6 +199,51 @@ def _serve_both(mesh):
     return runs
 
 
+def _loss_inputs(arch, rcfg):
+    """The reduced arch's parameters (seed 0) and a batch of LOSS's size."""
+    from repro_torch.models.model_zoo import build_model
+
+    model = build_model(arch, rcfg, reduced=True, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                              (LOSS["batch"], LOSS["seq"]), dtype=np.int32))
+             for k in ("tokens", "labels")}
+    return model, params, batch
+
+
+def _dtensor_loss_and_grads(mesh):
+    """{arch: (loss, every parameter's gradient as a full tensor, the
+    parameters' placements)} of each of LOSS's reduced archs whose
+    parameters are DTensors laid out by their logical axes under
+    ``AxisRules.pod()`` (the pod path: ``attn_expand_kv``), the batch split
+    over ``data``; the models' ``rules.constrain`` sites lay out the
+    activations."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.parallel.sharding_rules import (AxisRules, NamedSharding, distribute,
+                                                     tree_shardings)
+
+    rules = AxisRules.pod()
+    rows = NamedSharding(mesh, rules.spec(("batch", None)))
+    out = {}
+    for arch in LOSS["archs"]:
+        model, params, batch = _loss_inputs(arch, RunConfig(rules=rules, attn_expand_kv=True,
+                                                            mesh=mesh))
+        _, axes = model.abstract_params()
+        dparams = tree_lib.map(lambda t, sh: distribute(t, sh).requires_grad_(True), params,
+                               tree_shardings(axes, rules, mesh))
+        dbatch = {k: distribute(v, rows) for k, v in batch.items()}
+        with implicit_replication():
+            loss, _ = model.loss(dparams, dbatch)
+            grads = torch.autograd.grad(loss, tree_lib.leaves(dparams))
+        out[arch] = (loss.full_tensor().item(), [g.full_tensor().numpy() for g in grads],
+                     [str(p.placements) for p in tree_lib.leaves(dparams)])
+    return out
+
+
 @pytest.fixture(scope="module")
 def job8():
     return _run(_job8, 8)
@@ -238,6 +291,28 @@ def test_a_dim_over_two_mesh_dims_is_split_major_to_minor(job8):
         first = (p * 4 + d) * 2  # ("pod", "data"): pod major, as JAX splits it
         assert res["pod_data_rows"] == [first * 3, (first + 1) * 3], rank
         assert res["transposed_raises"], rank
+
+
+@pytest.mark.parametrize("arch", LOSS["archs"])
+def test_dtensor_loss_and_grads_on_8_gloo_ranks_equal_the_plain_ones(job8, arch):
+    """The reduced arch's loss and gradients with DTensor parameters under
+    ``AxisRules.pod()`` on the (2, 4) mesh, on every rank, equal the plain
+    tensors' in one process within 1e-5; the parameters really were split
+    over ``model``."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.transformer import RunConfig
+
+    model, params, batch = _loss_inputs(arch, RunConfig())
+    leaves = [p.requires_grad_(True) for p in tree_lib.leaves(params)]
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for rank, res in job8.items():
+        got_loss, got_grads, placements = res["dtensor_loss"][arch]
+        assert abs(got_loss - loss.item()) <= 1e-5, rank
+        assert len(got_grads) == len(grads)
+        for g, w in zip(got_grads, grads):
+            np.testing.assert_allclose(g, w.numpy(), atol=1e-5, err_msg=f"rank {rank}")
+        assert any("Shard" in p for p in placements), placements
 
 
 def test_elastic_remesh_after_failure_on_8_gloo_ranks(job8):

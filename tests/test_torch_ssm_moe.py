@@ -78,6 +78,32 @@ def test_conv_causal_is_an_unflipped_causal_cross_correlation():
     assert abs(got[0, 5, 3].item() - hand) < 1e-5
 
 
+@pytest.mark.parametrize("what", ["conv", "moe", "embedding"])
+def test_forms_under_enabled_rules_equal_the_plain_forms(what):
+    """Under enabled rules the mamba conv is W shifted multiply-adds, the
+    MoE combine a bmm and the embedding ``F.embedding`` (forms DTensor can
+    lay out); under disabled rules each keeps its plain form.  On plain
+    tensors, where every ``constrain`` is the identity, both give the same
+    result."""
+    from repro_torch.parallel.sharding_rules import AxisRules as PortRules
+
+    pod, null = PortRules.pod(), PortRules.null()
+    if what == "conv":
+        x, w, b = (torch.from_numpy(a) for a in (_x(0, 2, 9, 6), _x(1, 4, 6), _x(2, 6)))
+        got, want = mamba._conv_causal(x, w, b, pod), mamba._conv_causal(x, w, b, null)
+        assert torch.allclose(got, want, atol=1e-6, rtol=0)
+    elif what == "moe":
+        _, cfg, _, tp = _moe_setup("dense-residual")
+        x = torch.from_numpy(_x(3, 2, 8, D))
+        (got, got_aux), (want, want_aux) = (moe.moe_apply(tp, x, cfg, r) for r in (pod, null))
+        assert torch.allclose(got, want, atol=1e-6, rtol=0) and got_aux == want_aux
+    else:
+        table = torch.from_numpy(_x(4, 32, 8))
+        tokens = torch.from_numpy(np.random.default_rng(5).integers(0, 32, (2, 5), np.int32))
+        got = layers.embedding_lookup({"table": table}, tokens, pod)
+        assert torch.equal(got, layers.embedding_lookup({"table": table}, tokens, null))
+
+
 @pytest.mark.parametrize("S", [8, 2])  # S < W-1 left-pads the conv state
 def test_mamba_apply_full_sequence_state_and_decode_match_jax(S):
     cfg, jcfg = SSMConfig(), JaxSSMConfig()
