@@ -316,6 +316,8 @@ def main() -> int:
             main_err["rmsnorm"] = max(main_err["rmsnorm"], norm_case(
                 f"{arch} {label} {shape}", shape, torch.float32))
 
+    property_sweeps(torch, dev, failures)
+
     # The main path at a small size: reduced yi-9b, the same weights on the
     # card and on the CPU (plain versions) give the same logits and tokens.
     cpu_model = build_model("yi-9b", reduced=True, device="cpu")
@@ -537,6 +539,63 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# the card's counterparts of tests/test_property.py's two kernel invariants:
+# seeded numpy draws of its shapes (flash attention: B 1-2, S 1-48, KV
+# {1, 2, 4}, G {1, 2, 3} at the least served head dim; RMSNorm: rows 8-64,
+# width 32, eps 1e-6 to 1e-3, unit scale)
+PROPERTY_DRAWS = 20
+UNIT_RMS_TOL = 1e-2  # the JAX case's
+
+
+def property_sweeps(torch, dev, failures):
+    """``PROPERTY_DRAWS`` draws of each case through the hand-written
+    kernel: flash attention against its plain version at ``ATTN_TOL``,
+    RMSNorm against its plain version at ``NORM_TOL`` and to a unit RMS
+    within ``UNIT_RMS_TOL``.  A draw out of bounds is a failure."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    hd = min(HEAD_DIMS)
+
+    def normal(shape, mean=0.0, std=1.0):
+        return torch.from_numpy(rng.normal(mean, std, shape).astype(np.float32)).to(dev)
+
+    attn, shapes = 0.0, []
+    for _ in range(PROPERTY_DRAWS):
+        B, S = int(rng.integers(1, 3)), int(rng.integers(1, 49))
+        KV, G = int(rng.choice([1, 2, 4])), int(rng.choice([1, 2, 3]))
+        q, k, v = normal((B, S, KV * G, hd)), normal((B, S, KV, hd)), normal((B, S, KV, hd))
+        err = (flash_attention_cuda(q, k, v) - ref.flash_attention_ref(q, k, v)).abs().max()
+        attn = max(attn, err.item())
+        shapes.append((B, S, KV * G, KV))
+    norm = rms = 0.0
+    for _ in range(PROPERTY_DRAWS):
+        rows, eps = int(rng.integers(8, 65)), float(rng.uniform(1e-6, 1e-3))
+        x, one = normal((rows, 32), 2.0, 3.0), torch.ones(32, device=dev)
+        y = rmsnorm_cuda(x, one, eps=eps)
+        norm = max(norm, (y - ref.rmsnorm_ref(x, one, eps=eps)).abs().max().item())
+        rms = max(rms, (y.pow(2).mean(-1).sqrt() - 1).abs().max().item())
+    torch.cuda.synchronize()
+    ok_attn = attn <= ATTN_TOL["float32"]
+    ok_norm = norm <= NORM_TOL["float32"] and rms <= UNIT_RMS_TOL
+    print(f"  property sweeps ({PROPERTY_DRAWS} draws each, tests/test_property.py's shapes): "
+          f"flash_attention hd={hd} over {len(set(shapes))} (B, S, H, KV) shapes, S "
+          f"{min(x[1] for x in shapes)}-{max(x[1] for x in shapes)}, max_abs_err="
+          f"{attn:.3e} tol={ATTN_TOL['float32']:g} {'ok' if ok_attn else 'FAIL'}; rmsnorm "
+          f"(8-64, 32) unit scale max_abs_err={norm:.3e} tol={NORM_TOL['float32']:g}, "
+          f"|rms - 1| {rms:.3e} tol={UNIT_RMS_TOL:g} {'ok' if ok_norm else 'FAIL'} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    if not ok_attn:
+        failures.append(f"flash_attention property sweep: {attn:.3e}")
+    if not ok_norm:
+        failures.append(f"rmsnorm property sweep: {norm:.3e}, |rms - 1| {rms:.3e}")
 
 
 def cuda_time_ms(torch, fn, sets, iters=50):
@@ -2885,7 +2944,12 @@ _WALKER_CHILD = (
 # (the dry-run's --no-scan), on a (2, 4) mesh of the fake group with reduced
 # models, on this host's torch: (arch, layers, sequence length, kind), a
 # child process for each group
-COMPOSE_GROUPS = ((("yi-9b", 4, 16, "train"), ("jamba-1.5-large-398b", None, 256, "decode")),)
+COMPOSE_GROUPS = ((("yi-9b", 4, 16, "train"), ("jamba-1.5-large-398b", None, 256, "decode")),
+                  (("xlstm-350m", 4, 32, "prefill"),))
+# xlstm-350m train_4k's collective term before the recurrent blocks' layouts
+# were fixed: an estimate from lengths 2 and 3 (this script on an H100 80GB
+# HBM3 at 700.00 W)
+XLSTM_TRAIN_4K_ESTIMATE_S = 5.634
 _COMPOSE_CHILD = (
     "import dataclasses, json, sys\n"
     "from repro_torch.configs.base import InputShape, get_arch\n"
@@ -3178,6 +3242,11 @@ def roofline_phase(torch, dev, card, train):
             if not ok:
                 print(log[-3000:])
                 failures.append(f"dryrun {arch_c} {shape_c}")
+            if (arch_c, shape_c) == ("xlstm-350m", "train_4k") and ok:
+                print(f"roofline (c): xlstm-350m train_4k collective bytes by kind "
+                      f"{rec['collective_bytes']}, counts {rec['collective_counts']}; collective "
+                      f"term {r['collective_s']:.4f} s (the estimate from lengths 2 and 3 before "
+                      f"the recurrent blocks' layouts were fixed: {XLSTM_TRAIN_4K_ESTIMATE_S} s)")
             out["dryrun"].append(dict(arch=arch_c, shape=shape_c, exit=rc, seconds=wall,
                                       record=rec))
     finally:

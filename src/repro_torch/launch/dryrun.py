@@ -480,8 +480,7 @@ def run_cell(arch: str, shape_name: str, opts: DryRunOptions,
     record["roofline"]["collective_source"] = "rank-0 trace" + (
         "" if not opts.scan_layers else ", composed per block" + (
             "" if r0["lengths"] is None else
-            "; recurrent blocks extrapolated from lengths %d and %d (an estimate: DTensor "
-            "plans some layouts by a cost that depends on the length)" % r0["lengths"]))
+            "; recurrent blocks extrapolated from lengths %d and %d" % r0["lengths"]))
     record["xla_cost_analysis"] = {"flops": r0["flop_counter"]}
     if verbose:
         print(json.dumps(record, indent=1))

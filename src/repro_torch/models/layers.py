@@ -141,6 +141,14 @@ def embedding_init(gen: torch.Generator, vocab: int, d_model: int, *,
                                 device=device)}
 
 
+def gathered(w: torch.Tensor, rules: AxisRules, *axes) -> torch.Tensor:
+    """Weight ``w`` laid out by its logical ``axes`` with the FSDP dim
+    (``"embed"``) whole: the all-gather before its product, made here, where
+    DTensor would pick between gathering the weight and moving the
+    product's other operand by their sizes, so by the sequence length."""
+    return rules.constrain(w, *(None if a == "embed" else a for a in axes))
+
+
 def embedding_lookup(params: dict, tokens: torch.Tensor,
                      rules: AxisRules = _NULL_RULES) -> torch.Tensor:
     if not rules.enabled:

@@ -79,7 +79,8 @@ def _ssm_params(params, xc, d_model, cfg, rules: AxisRules):
     # laid out by batch (and sequence): a sum over the split E that DTensor
     # would otherwise reduce-scatter over the sequence, which the scan's
     # per-chunk product flattens into a strided shard (a planner search)
-    dbc = rules.constrain(xc @ params["x_proj"], "batch", *("seq",) * (xc.ndim - 2), None)
+    dbc = rules.constrain(xc @ params["x_proj"], "batch", *("seq",) * (xc.ndim - 2), None,
+                          grad=True)
     dt_x, Bp, Cp = torch.split(dbc, [R, N, N], dim=-1)
     dt = F.softplus(dt_x @ params["dt_proj"] + params["dt_bias"])
     return dt.float(), Bp.float(), Cp.float()
@@ -118,7 +119,8 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
     B, S, D = x.shape
     W = cfg.conv_width
 
-    xz = rules.constrain(x @ params["in_proj"], "batch", "seq", "inner")
+    xz = rules.constrain(x @ layers.gathered(params["in_proj"], rules, "embed", "inner"),
+                         "batch", "seq", "inner")
     x1, z = xz.chunk(2, dim=-1)
     A = -torch.exp(params["A_log"])                               # (E,N)
 
@@ -127,7 +129,14 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
         xc = F.silu(_conv_causal(x1, params["conv_w"], params["conv_b"], rules))
         dt, Bp, Cp = _ssm_params(params, xc, D, cfg, rules)
         xcf = xc.float()
-        ys, new_ssm = _scan(dt, Bp, Cp, xcf, A)
+        # the scan runs on each rank's batch rows and inner channels as plain
+        # tensors: DTensor would lay a step out by its sizes, which depend on
+        # the length
+        ys, new_ssm = rules.local(
+            _scan, (dt, Bp, Cp, xcf, A),
+            (("batch", None, "inner"), ("batch", None, None), ("batch", None, None),
+             ("batch", None, "inner"), ("inner", None)),
+            (("batch", None, "inner"), ("batch", "inner", None)))
         y = ys + params["D"] * xcf                                # (B,S,E)
         new_conv = None
         if return_state:
@@ -151,7 +160,8 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
         new_conv = window[:, 1:]
 
     y = y.to(x.dtype) * F.silu(z)
-    out = rules.constrain(y @ params["out_proj"], "batch", "seq", "embed_act")
+    out_proj = layers.gathered(params["out_proj"], rules, "inner", "embed")
+    out = rules.constrain(y @ out_proj, "batch", "seq", "embed_act")
     if return_state:
         return out, new_ssm, new_conv
     return out

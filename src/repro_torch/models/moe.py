@@ -71,8 +71,12 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
     # product then flattens into a strided shard, and DTensor plans every
     # redistribute of one by a search (minutes a layer on a 16 x 16 mesh)
     probs = rules.constrain(torch.softmax(router_logits, dim=-1), "batch", None, None)
-    gate_w, gate_idx = _top_k(probs, K)                               # (B,S,K)
-    gate_w = gate_w / torch.clamp(gate_w.sum(dim=-1, keepdim=True), min=1e-9)
+    # the router's two consumers (the top-k and the aux loss) and the gates
+    # hand their gradients back laid out by batch, so the ops between take
+    # no layout that DTensor picks by how the groups divide over the mesh
+    gate_w, gate_idx = _top_k(rules.constrain(probs, "batch", None, None, grad=True), K)
+    gate_w = rules.constrain(gate_w / torch.clamp(gate_w.sum(dim=-1, keepdim=True), min=1e-9),
+                             "batch", None, None, grad=True)                # (B,S,K)
 
     # Position of each token in its expert's buffer, per routing slot: an
     # exclusive cumsum over the (S*K) axis, s-major and k-minor.
@@ -115,6 +119,6 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
 
     # Switch-style load-balance aux loss over the top-1 slot.
     frac_tokens = slot_onehot[:, :, 0, :].mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
+    frac_probs = rules.constrain(probs, "batch", None, None, grad=True).mean(dim=(0, 1))
     aux = E * (frac_tokens * frac_probs).sum()
     return rules.constrain(y.reshape(B0, S0, D), "batch", "seq", "embed_act"), aux

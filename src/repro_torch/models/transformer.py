@@ -278,6 +278,16 @@ def _block_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, pos: int, *,
                  positions, cache=None, t=None, build_cache=False):
     """Returns (x, aux_loss, new_cache)."""
     btype = cfg.layer_pattern[pos]
+    # in an arch with blocks that loop over the sequence, every block takes
+    # the residual and hands it (and its gradient) on in one layout, so what
+    # a block costs does not depend on its neighbours (graph_cost.stack_cost
+    # composes the stack from blocks traced apart, in stacks of other block
+    # kinds, and extrapolates the recurrent ones in the length); other archs
+    # compose exactly without these two redistributes a block, which cost a
+    # DTensor step host time
+    edge = cfg.ssm is not None or cfg.xlstm is not None
+    if edge:
+        x = rcfg.rules.constrain(x, "batch", "seq", "embed_act", grad=True)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     xn = layers.rmsnorm_apply(p["norm1"], x, eps=cfg.norm_eps)
     decode = cache is not None
@@ -321,6 +331,8 @@ def _block_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, pos: int, *,
         else:
             y = layers.mlp_apply(p["ffn"], xn2, rcfg.rules)
         x = x + y
+    if edge:
+        x = rcfg.rules.constrain(x, "batch", "seq", "embed_act", grad=True)
     return x, aux, new_cache
 
 

@@ -61,29 +61,51 @@ def _slstm_cell(R: torch.Tensor, wx_t: torch.Tensor, state: dict, num_heads: int
     return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
-def slstm_apply(params: dict, x: torch.Tensor, num_heads: int,
-                rules: AxisRules = layers._NULL_RULES, *, state=None,
-                return_state: bool = False):
-    B, S, D = x.shape
-    # batch rows per rank, every gate column on each (one gather before the
-    # loop): the steps then run locally, where DTensor would redistribute
-    # a partial or column-split wx at every step
-    wx = rules.constrain(x @ params["W"] + params["b"], "batch", "seq", None)  # (B,S,4D)
-    if state is None:
-        state = slstm_init_state(B, D, device=x.device)
-    R = params["R"].float()  # the fp32 state meets R in fp32, as in JAX
+_SLSTM_STATE = ("c", "n", "h", "m")
+
+
+def _slstm_loop(R: torch.Tensor, wx: torch.Tensor, num_heads: int, *state) -> tuple:
+    """The sLSTM recurrence over wx (B,S,4D) from ``state`` (c, n, h, m;
+    Nones for the initial state): the hidden states (B,S,D) fp32 and the
+    last state."""
+    B, D = wx.shape[0], wx.shape[2] // 4
+    if state[0] is None:
+        state = tuple(slstm_init_state(B, D, device=wx.device)[k] for k in _SLSTM_STATE)
+    state = dict(zip(_SLSTM_STATE, state))
     hs = []
     # one unbind, not a slice a step: the gradient of a slice is a
     # sequence-long tensor, and S of them summed cost S^2 in the backward
     for wx_t in wx.unbind(1):
         state = _slstm_cell(R, wx_t, state, num_heads)
         hs.append(state["h"])
-    h = torch.stack(hs, dim=1).to(x.dtype)                         # (B,S,D)
-    u = F.gelu(h @ params["up"], approximate="tanh")  # jax.nn.gelu's default form
-    u = rules.constrain(u, "batch", "seq", "inner")
-    out = rules.constrain(u @ params["down"], "batch", "seq", "embed_act")
+    return (torch.stack(hs, dim=1),) + tuple(state[k] for k in _SLSTM_STATE)
+
+
+def slstm_apply(params: dict, x: torch.Tensor, num_heads: int,
+                rules: AxisRules = layers._NULL_RULES, *, state=None,
+                return_state: bool = False):
+    B, S, D = x.shape
+    # batch rows per rank, every gate column on each (one gather before the
+    # loop)
+    W = layers.gathered(params["W"], rules, "embed", "inner")
+    wx = rules.constrain(x @ W + params["b"], "batch", "seq", None, grad=True)  # (B,S,4D)
+    R = params["R"].float()  # the fp32 state meets R in fp32, as in JAX
+    # the loop runs on each rank's batch rows as plain tensors: DTensor
+    # would lay a step out by its sizes, which depend on the length
+    rows = ("batch", None)
+    h, *last = rules.local(
+        lambda *a: _slstm_loop(a[0], a[1], num_heads, *a[2:]),
+        (R, wx) + tuple(state[k] if state else None for k in _SLSTM_STATE),
+        ((None, None, None), ("batch", None, None)) + (rows,) * 4,
+        (("batch", None, None),) + (rows,) * 4)
+    h = h.to(x.dtype)                                               # (B,S,D)
+    up = layers.gathered(params["up"], rules, "embed", "inner")
+    u = F.gelu(h @ up, approximate="tanh")  # jax.nn.gelu's default form
+    u = rules.constrain(u, "batch", "seq", "inner", grad=True)
+    down = layers.gathered(params["down"], rules, "inner", "embed")
+    out = rules.constrain(u @ down, "batch", "seq", "embed_act", grad=True)
     if return_state:
-        return out, state
+        return out, dict(zip(_SLSTM_STATE, last))
     return out
 
 
@@ -133,6 +155,19 @@ def _mlstm_step(state: dict, q_t, k_t, v_t, i_t, f_t):
     return {"C": C_new, "n": n_new, "m": m_new}, num / den[..., None]
 
 
+def _mlstm_loop(q, k, v, i_t, f_t, C, n, m) -> tuple:
+    """The mLSTM recurrence over q/k/v (B,S,H,dh) and the gates (B,S,H)
+    from the state (C, n, m; Nones for the initial state): the hidden
+    states (B,S,H,dh) fp32 and the last state."""
+    B, _, H, dh = q.shape
+    state = mlstm_init_state(B, H, dh, device=q.device) if C is None else {"C": C, "n": n, "m": m}
+    hs = []
+    for step in zip(*(a.unbind(1) for a in (q, k, v, i_t, f_t))):  # as in sLSTM
+        state, h_t = _mlstm_step(state, *step)
+        hs.append(h_t)
+    return (torch.stack(hs, dim=1), state["C"], state["n"], state["m"])
+
+
 def mlstm_apply(params: dict, x: torch.Tensor, num_heads: int, cfg: XLSTMConfig,
                 rules: AxisRules = layers._NULL_RULES, *,
                 state=None, return_state: bool = False):
@@ -140,29 +175,32 @@ def mlstm_apply(params: dict, x: torch.Tensor, num_heads: int, cfg: XLSTMConfig,
     E = _round64(cfg.proj_factor_mlstm * D)
     H, dh = num_heads, E // num_heads
 
-    xz = rules.constrain(x @ params["in_proj"], "batch", "seq", "inner")
-    xi, z = xz.chunk(2, dim=-1)
+    xz = rules.constrain(x @ layers.gathered(params["in_proj"], rules, "embed", "inner"),
+                          "batch", "seq", "inner", grad=True)
+    xi, z = (rules.constrain(a, "batch", "seq", None, grad=True) for a in xz.chunk(2, dim=-1))
     # laid out by the heads before the split into them (4 heads cannot
     # stay split over 16 ranks)
-    xih = rules.constrain(xi, "batch", "seq", "heads").reshape(B, S, H, dh)
+    xih = rules.constrain(xi, "batch", "seq", "heads", grad=True).reshape(B, S, H, dh)
     q = torch.einsum("bshd,hde->bshe", xih, params["Wq"]).float()
     k = (torch.einsum("bshd,hde->bshe", xih, params["Wk"]) / (dh ** 0.5)).float()
     v = torch.einsum("bshd,hde->bshe", xih, params["Wv"]).float()
-    gates = (xi @ params["w_if"]).float()
+    gates = rules.constrain((xi @ params["w_if"]).float(), "batch", "seq", None, grad=True)
     i_t, f_t = gates.chunk(2, dim=-1)                              # (B,S,H)
     f_t = -F.softplus(-f_t)  # log sigmoid: a stable forget gate in log space
 
-    if state is None:
-        state = mlstm_init_state(B, H, dh, device=x.device)
-    hs = []
-    for step in zip(*(a.unbind(1) for a in (q, k, v, i_t, f_t))):  # as in sLSTM
-        state, h_t = _mlstm_step(state, *step)
-        hs.append(h_t)
-    h = torch.stack(hs, dim=1).reshape(B, S, E).to(x.dtype)
-    h = rules.constrain(h, "batch", "seq", "heads") * F.silu(z)  # its gradient too
-    out = rules.constrain(h @ params["out_proj"], "batch", "seq", "embed_act")
+    heads = ("batch", None, "heads")
+    h, *last = rules.local(
+        _mlstm_loop, (q, k, v, i_t, f_t) + tuple(state[n] if state else None for n in "Cnm"),
+        (heads + (None,),) * 3 + (heads,) * 2
+        + (("batch", "heads", None, None), ("batch", "heads", None), ("batch", "heads")),
+        (heads + (None,), ("batch", "heads", None, None), ("batch", "heads", None),
+         ("batch", "heads")))
+    h = h.reshape(B, S, E).to(x.dtype)
+    h = rules.constrain(h, "batch", "seq", "heads", grad=True) * F.silu(z)  # its gradient too
+    out_proj = layers.gathered(params["out_proj"], rules, "inner", "embed")
+    out = rules.constrain(h @ out_proj, "batch", "seq", "embed_act", grad=True)
     if return_state:
-        return out, state
+        return out, dict(zip("Cnm", last))
     return out
 
 

@@ -137,12 +137,15 @@ class AxisRules:
     def spec(self, logical_axes: Sequence[Optional[str]]) -> PartitionSpec:
         return PartitionSpec(*(self.axes(a) for a in logical_axes))
 
-    def constrain(self, x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    def constrain(self, x: torch.Tensor, *logical_axes: Optional[str],
+                  grad: bool = False) -> torch.Tensor:
         """Lay a DTensor out by its logical axes (a redistribute); a plain
         tensor is returned unchanged, and so is everything when the rules
         are disabled.  A dim that its mesh dims do not divide stays
         replicated (GSPMD would pad it; e.g. the MoE groups of a small
-        batch)."""
+        batch).  ``grad`` lays the gradient out the same way before it goes
+        on back (as JAX's ``with_sharding_constraint`` constrains the
+        cotangent), whatever layout it arrives in."""
         if not self.enabled:
             return x
         if len(logical_axes) != x.ndim:
@@ -160,7 +163,73 @@ class AxisRules:
             for a in _names(entry):
                 shards *= mesh.size(names.index(a)) if a in names else 1
             spec.append(entry if n % shards == 0 else None)
-        return x.redistribute(mesh, placements(mesh, spec, x.shape))
+        pl = placements(mesh, spec, x.shape)
+        x = x.redistribute(mesh, pl)
+        return _GradLayout.apply(x, pl) if grad else x
+
+    def local(self, fn, args: Sequence, in_axes: Sequence, out_axes: Sequence) -> tuple:
+        """``fn(*args)`` on this rank's parts of the tensors ``args``: each
+        is laid out by its logical axes in ``in_axes`` (``constrain``; a
+        plain tensor counts as replicated) and handed to ``fn`` as its
+        local tensor, and ``fn``'s outputs (a tuple) come back DTensors
+        laid out by ``out_axes``, a logical axis split as the inputs split
+        it.  So ``fn`` runs on plain tensors, where DTensor would plan each
+        op's layout by a cost that depends on the sizes: a loop over the
+        sequence then costs the same each step at every length.  ``fn``
+        must treat the rows of every mesh dim that splits an input apart (a
+        recurrence over batch rows or heads): an input replicated over such
+        a dim takes its gradient as a partial sum there.  Under disabled
+        rules, or with no DTensor among ``args``, it is ``fn(*args)``."""
+        if not self.enabled:
+            return fn(*args)
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)), None)
+        if mesh is None:
+            return fn(*args)
+        laid = []
+        for a, axes in zip(args, in_axes):
+            if isinstance(a, torch.Tensor) and not isinstance(a, DTensor):
+                a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            laid.append(self.constrain(a, *axes) if isinstance(a, DTensor) else a)
+        split: dict = {}  # logical axis -> the mesh dims that split it
+        for a, axes in zip(laid, in_axes):
+            if isinstance(a, DTensor):
+                for d, p in enumerate(a.placements):
+                    if p.is_shard():
+                        split.setdefault(axes[p.dim], set()).add(d)
+        dims = set().union(*split.values())
+        locs = []
+        for a in laid:
+            if isinstance(a, DTensor):
+                grad = [Partial() if d in dims and isinstance(p, Replicate) else p
+                        for d, p in enumerate(a.placements)]
+                a = a.to_local(grad_placements=grad)
+            locs.append(a)
+        outs = fn(*locs)
+
+        def wrap(o, axes):
+            pl = [Replicate()] * mesh.ndim
+            for i, name in enumerate(axes):
+                for d in split.get(name, ()) if name is not None else ():
+                    pl[d] = Shard(i)
+            return DTensor.from_local(o, mesh, pl, run_check=False)
+
+        return tuple(wrap(o, axes) for o, axes in zip(outs, out_axes))
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to the
+    forward's placements."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.pl), None
 
 
 def _is_axes(v) -> bool:

@@ -322,23 +322,26 @@ def extrapolation_lengths(seq_len: int, batch: int, chunk: int, group: int,
                           moe: bool, group_multiple: int = 1) -> Optional[tuple[int, int]]:
     """Two short lengths L1 < L2 at which a block that loops over the
     sequence is traced: the two least multiples of ``chunk`` (the loop's
-    step in positions) of at least two chunks that, for a block with an
-    MoE FFN, make batch*L a multiple of the MoE group size and at least two
-    groups, their number a multiple of ``group_multiple`` (the shards of
-    the batch dim, over which the groups are split).  So every traced loop
-    has the structure of the full length's: whole chunks, more than one (a
-    single chunk is the whole sequence, whose slices are contiguous and
-    copy nothing), and whole groups, more than one (one group is a dim of
-    size 1, for which some ops take other paths), as many on each shard.
+    step in positions) of at least two chunks and three positions that,
+    for a block with an MoE FFN, make batch*L a multiple of the MoE group
+    size and at least two groups on each of the ``group_multiple`` shards
+    of the batch dim (over which the groups are split), as many on each.
+    So every traced loop has the structure of the full length's: whole
+    chunks, more than one (a single chunk is the whole sequence, whose
+    slices are contiguous and copy nothing), a first, a middle and a last
+    step (a loop of two steps has no middle one, and its liveness peaks
+    elsewhere), and whole groups, more than one on each shard (one group
+    is a dim of size 1, for which some ops take other paths).
     None where ``seq_len`` is not a whole number of chunks or L2 would
     exceed it."""
     if seq_len % chunk:
         return None
     found = []
-    L = 2 * chunk
+    L = chunk * max(2, -(-3 // chunk))
     while L <= seq_len and len(found) < 2:
         groups, rest = divmod(batch * L, group)
-        if not moe or (rest == 0 and groups >= 2 and groups % group_multiple == 0):
+        if not moe or (rest == 0 and groups >= 2 * group_multiple
+                       and groups % group_multiple == 0):
             found.append(L)
         L += chunk
     return tuple(found) if len(found) == 2 else None
@@ -387,7 +390,10 @@ def stack_cost(measure: Callable[[object, int], dict], cfg, *, seq_len: int, bat
     recurrent blocks loop over the sequence) a difference of stacks whose
     extra block is a mamba, sLSTM or mLSTM block is traced at the two
     ``extrapolation_lengths`` and extrapolated linearly to ``seq_len``,
-    which is exact: the loop's cost is affine in its trip count.
+    which is exact where every layout in the block is the same at every
+    length, as the model makes it (the recurrences run on local tensors,
+    ``AxisRules.local``, and the block takes and hands on its residual in
+    one layout): the loop's cost is then affine in its trip count.
     ``unroll`` traces the whole step once (the dry-run's ``--no-scan``)."""
     if unroll:
         return measure(cfg, seq_len)
@@ -437,9 +443,11 @@ def group_peak(measure: Callable[[object, int], dict], cfg, *, seq_len: int, bat
     of identical groups from two on, as a step's peak is when it comes at
     the same point of the last group (the start of the backward, the head,
     a decode step's new caches).  Where the stack's blocks loop over the
-    sequence, traces of one and two groups (the longest traces, and an
-    estimate there anyway) at the ``loop_lengths`` are extrapolated
-    linearly in the number of groups and in the length.  ``unroll`` traces
+    sequence, traces of one and two groups (the longest traces) at the
+    ``loop_lengths`` are extrapolated linearly in the number of groups and
+    in the length: exact where the peak comes at the same point of the
+    loop (its first, a middle or its last step) at the traced lengths as
+    at ``seq_len``.  ``unroll`` traces
     the whole step once."""
     if unroll:
         return measure(cfg, seq_len)

@@ -178,8 +178,10 @@ def test_full_size_cell_record_has_jaxs_keys(child, i):
     # rank 0's products: some, and no more than the whole step's
     flops = rec["roofline"]["flops_per_chip"] * rec["n_chips"]
     assert 0 < rec["xla_cost_analysis"]["flops"] <= flops
-    # xLSTM's cells are extrapolated from two lengths, and the record says so
+    # xLSTM's cells are extrapolated from two lengths, and the record says
+    # so; the composition is exact (tests/test_torch_dryrun_recurrent.py)
     assert ("extrapolated" in rec["roofline"]["collective_source"]) == (i == 1)
+    assert "estimate" not in rec["roofline"]["collective_source"]
     # the walker's global count against 6 N T, in the band of the JAX
     # walker against XLA (tests/test_roofline.py): attention and remat add
     # to it, the embedding's parameters cost no products

@@ -10,16 +10,14 @@ runs both for reduced models deep enough that every composition has
 something to extrapolate (four layers of yi-9b, so four pattern groups;
 three of grok), for prefill, a training step (AdamW under remat, the
 dry-run's train cell) and decode, and for jamba's decode and its prefill
-(mamba blocks extrapolated from two lengths).  Every metric of the record
-must be equal: the collective bytes and counts, the nodes, the
-``FlopCounterMode`` count and the peak live bytes.
+(mamba blocks traced at 256 and 384 positions, extrapolated to 512).
+Every metric of the record must be equal: the collective bytes and counts,
+the nodes, the ``FlopCounterMode`` count and the peak live bytes.  Every
+case that extrapolates does so to a length past both traced lengths.
 
-Not held here: jamba's training step (the same composition as its prefill,
-a few minutes of tracing) and xLSTM's prefill and training step, whose
-recurrent blocks are extrapolated from two short lengths at which DTensor
-plans some layouts differently from the cell's length (by a cost that
-depends on the length), so their rank-0 numbers are an estimate; the
-dry-run's record says so (``tests/test_torch_dryrun.py``).
+The recurrent blocks' prefill and training cases of xLSTM and jamba's
+training step are in ``tests/test_torch_dryrun_recurrent.py`` (children of
+their own, so xdist puts them on another worker).
 """
 import json
 import os
@@ -35,7 +33,7 @@ CHILD_TIMEOUT = 600
 CASES = (("yi-9b", 4, 16, "prefill"), ("yi-9b", 4, 16, "train"), ("yi-9b", 4, 16, "decode"),
          ("grok-1-314b", 3, 16, "prefill"), ("grok-1-314b", 3, 16, "train"),
          ("grok-1-314b", 3, 16, "decode"),
-         ("jamba-1.5-large-398b", None, 256, "prefill"),
+         ("jamba-1.5-large-398b", None, 512, "prefill"),
          ("jamba-1.5-large-398b", None, 256, "decode"),
          ("xlstm-350m", 4, 32, "decode"))
 
@@ -80,6 +78,8 @@ def test_composed_rank0_program_equals_the_whole_trace(child, i):
     assert {k for k in keys if k.startswith("coll:")} >= {"coll:total", "coll:all-gather"}
     assert {k: composed[k] for k in keys} == {k: whole[k] for k in keys}
     assert whole["flop_counter"] > 0 and whole["nodes"] > 0 and whole["temp"] > 0
-    # jamba's prefill is the one case whose mamba blocks are extrapolated
+    # jamba's prefill is the one case whose mamba blocks are extrapolated,
+    # and past both traced lengths
     assert (composed["lengths"] is not None) == (CASES[i][0].startswith("jamba")
                                                  and CASES[i][3] == "prefill")
+    assert composed["lengths"] is None or CASES[i][2] > max(composed["lengths"])
