@@ -23,7 +23,8 @@ cache.  Prompts come from
 ``np.random.default_rng(seed)`` exactly as in the JAX ``serve``, so both
 packages serve the same tokens.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        [--trace-out lm.json]
     PYTHONPATH=src python -m repro_torch.launch.serve --adaptive \
         [--device cpu] [--model heuristic] [--window 4]
     PYTHONPATH=src python -m repro_torch.launch.serve --worker-procs 2 \
@@ -32,8 +33,10 @@ packages serve the same tokens.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 from typing import Optional, Sequence
@@ -138,6 +141,23 @@ def serve(
         n_requests=n_requests, tokens_generated=total_tokens, wall_s=wall,
         tokens_per_s=total_tokens / wall, outputs=outputs,
         logits_finite=all_finite, prefill_s=prefill_s)
+
+
+@contextlib.contextmanager
+def profiled(path: str, device):
+    """Run the body under ``torch.profiler`` (host ops, and the card's
+    kernels and copies on a card) and write its Chrome trace to ``path``:
+    the model's spans (``model.prefill``, ``model.decode_step``,
+    ``attn.decode``) sit there beside the kernels they launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    prof.export_chrome_trace(path)
 
 
 DEFAULT_ADAPTIVE_WORKLOADS = ("vecadd", "dotprod", "mvmult")
@@ -532,8 +552,10 @@ def main() -> None:
                          "REPRO_TORCH_MODEL_DIR or <repo>/build/models)")
     ap.add_argument("--trace-out", default=None,
                     help="enable span tracing; write Chrome trace-event "
-                         "JSON here (Perfetto-loadable; a .jsonl with "
-                         "raw spans lands alongside)")
+                         "JSON here (Perfetto-loadable; with --adaptive a "
+                         ".jsonl with raw spans lands alongside; for the "
+                         "LM driver, the torch profiler's trace of the "
+                         "run, the model's spans beside its kernels)")
     ap.add_argument("--metrics-out", default=None,
                     help="enable the metrics registry; write its "
                          "snapshot JSON here (summary also gains a "
@@ -587,11 +609,15 @@ def main() -> None:
 
     if not args.arch:
         ap.error("--arch is required unless --adaptive is given")
-    res = serve(args.arch, n_requests=args.requests, batch_slots=args.slots,
-                prompt_len=args.prompt_len, gen_len=args.gen_len,
-                device=args.device)
+    with (profiled(args.trace_out, args.device) if args.trace_out
+          else contextlib.nullcontext()):
+        res = serve(args.arch, n_requests=args.requests, batch_slots=args.slots,
+                    prompt_len=args.prompt_len, gen_len=args.gen_len,
+                    device=args.device)
     print(f"{res.tokens_generated} tokens in {res.wall_s:.2f}s "
           f"({res.tokens_per_s:.1f} tok/s)")
+    if args.trace_out:
+        print(f"chrome trace -> {args.trace_out}")
 
 
 if __name__ == "__main__":

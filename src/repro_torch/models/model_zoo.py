@@ -21,6 +21,7 @@ from repro_torch.configs.base import ArchConfig, InputShape, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.transformer import RunConfig
+from repro_torch.spans import span
 
 
 class Model:
@@ -51,8 +52,9 @@ class Model:
     def prefill(self, params, batch):
         """Returns (last-token logits, per-layer decode state: k/v over the
         prompt, or the recurrent state after it)."""
-        logits, _, cache = transformer.forward(
-            params, batch, self.cfg, self.rcfg, build_cache=True, last_only=True)
+        with span("model.prefill"):
+            logits, _, cache = transformer.forward(
+                params, batch, self.cfg, self.rcfg, build_cache=True, last_only=True)
         return logits[:, -1], cache
 
     def init_cache(self, batch_size: int, max_seq: int):
@@ -80,8 +82,9 @@ class Model:
         """One serving step: the token at position ``t``.  Returns the
         logits and the cache: attention k/v updated in place, recurrent
         states replaced."""
-        logits, _, new_cache = transformer.forward(
-            params, batch, self.cfg, self.rcfg, cache=cache, t=t)
+        with span("model.decode_step"):
+            logits, _, new_cache = transformer.forward(
+                params, batch, self.cfg, self.rcfg, cache=cache, t=t)
         return logits[:, 0], new_cache
 
     def input_specs(self, shape: InputShape, *, dtype=torch.int32) -> dict:

@@ -25,6 +25,7 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.parallel.sharding_rules import AxisRules
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,14 +262,15 @@ def _attn_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, *, positions,
                              f"t; got {x.shape[1]} tokens, t={t}")
         kc, vc = cache["k"], cache["v"]
         kn, vn = k.to(kc.dtype), v.to(vc.dtype)
-        if rcfg.decode_attn == "sharded":
-            o, kc, vc = attn_lib.decode_attention_sharded(
-                q, kn, vn, kc, vc, t, mesh=rcfg.mesh, dp_axes=rcfg.dp_axes)
-        elif rcfg.decode_attn == "local":
-            o, kc, vc = attn_lib.decode_attention_local(q, kn, vn, kc, vc, t)
-        else:
-            raise ValueError(f"decode_attn must be local or sharded; "
-                             f"got {rcfg.decode_attn!r}")
+        with span("attn.decode"):
+            if rcfg.decode_attn == "sharded":
+                o, kc, vc = attn_lib.decode_attention_sharded(
+                    q, kn, vn, kc, vc, t, mesh=rcfg.mesh, dp_axes=rcfg.dp_axes)
+            elif rcfg.decode_attn == "local":
+                o, kc, vc = attn_lib.decode_attention_local(q, kn, vn, kc, vc, t)
+            else:
+                raise ValueError(f"decode_attn must be local or sharded; "
+                                 f"got {rcfg.decode_attn!r}")
         new_cache = {"k": kc, "v": vc}
     out = _unproject(o.to(x.dtype), p["wo"], rules)
     return rules.constrain(out, "batch", "seq", "embed_act"), new_cache

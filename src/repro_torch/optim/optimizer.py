@@ -19,6 +19,7 @@ import math
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,30 +82,31 @@ def _global_norm(tree) -> torch.Tensor:
 def apply_updates(params, grads, state: dict, cfg: AdamWConfig):
     """One AdamW step.  Returns (params, state, {"grad_norm", "lr"}), the
     trees updated in place; ``grad_norm`` is before clipping."""
-    step = state["step"] + 1
-    gnorm = _global_norm(grads)
-    scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-             if cfg.clip_norm > 0 else 1.0)
-    lr = lr_at(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - torch.pow(_f32(b1), step.float())
-    bc2 = 1.0 - torch.pow(_f32(b2), step.float())
-    flat_p = tree_lib.leaves(params)
-    flat_g = tree_lib.leaves(grads)
-    flat_m = tree_lib.leaves(state["m"])
-    flat_v = tree_lib.leaves(state["v"])
-    if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
-        raise ValueError(f"params, grads and moments differ in leaves: {len(flat_p)}, "
-                         f"{len(flat_g)}, {len(flat_m)}, {len(flat_v)}")
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        g = g.float() * scale
-        m32 = m.float() * b1 + (1 - b1) * g
-        v32 = v.float() * b2 + (1 - b2) * g * g
-        mh = m32 / bc1
-        vh = v32 / bc2
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        m.copy_(m32)
-        v.copy_(v32)
-    state["step"] = step
+    with span("optim.apply_updates"):
+        step = state["step"] + 1
+        gnorm = _global_norm(grads)
+        scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+                 if cfg.clip_norm > 0 else 1.0)
+        lr = lr_at(cfg, step)
+        b1, b2 = cfg.b1, cfg.b2
+        bc1 = 1.0 - torch.pow(_f32(b1), step.float())
+        bc2 = 1.0 - torch.pow(_f32(b2), step.float())
+        flat_p = tree_lib.leaves(params)
+        flat_g = tree_lib.leaves(grads)
+        flat_m = tree_lib.leaves(state["m"])
+        flat_v = tree_lib.leaves(state["v"])
+        if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
+            raise ValueError(f"params, grads and moments differ in leaves: {len(flat_p)}, "
+                             f"{len(flat_g)}, {len(flat_m)}, {len(flat_v)}")
+        for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+            g = g.float() * scale
+            m32 = m.float() * b1 + (1 - b1) * g
+            v32 = v.float() * b2 + (1 - b2) * g * g
+            mh = m32 / bc1
+            vh = v32 / bc2
+            delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
+            p.copy_(p.float() - lr * delta)
+            m.copy_(m32)
+            v.copy_(v32)
+        state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

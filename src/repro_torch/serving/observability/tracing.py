@@ -24,6 +24,9 @@ Exports: ``export_jsonl`` (one span per line, greppable) and
 microsecond timestamps rebased to the trace start, one Perfetto track
 per recording thread.
 
+The model's and optimizer's profiler ranges, :func:`span`, live in
+:mod:`repro_torch.spans` with the shared no-op span, and are imported here.
+
 The disabled path must cost nothing: :data:`NULL_TRACER` is a process
 singleton whose ``span()`` returns one shared no-op context manager —
 no clock read, no allocation, no lock — so schedulers constructed
@@ -37,6 +40,8 @@ import os
 import threading
 import time
 from typing import Optional
+
+from repro_torch.spans import _NULL_SPAN, _NullSpan, span  # noqa: F401
 
 #: span name prefix -> attribution stage; ``stage_of("tune.cold.batch")``
 #: is ``"tune"`` — the five-way split BENCH_overhead.json reports
@@ -122,21 +127,6 @@ class _SpanCM:
             trace_id=self.trace_id,
             parent=stack[-1] if stack else None,
             depth=depth, cpu_s=cpu, attrs=self.attrs))
-
-
-class _NullSpan:
-    """The shared no-op span: zero clock reads, zero allocation."""
-
-    __slots__ = ()
-
-    def __enter__(self) -> "_NullSpan":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        pass
-
-
-_NULL_SPAN = _NullSpan()
 
 
 class Tracer:
