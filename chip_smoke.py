@@ -10,11 +10,16 @@ On one NVIDIA card (written for an H100) it
 2. holds each kernel against its plain PyTorch version on the card, at the
    JAX package's test shapes and at the yi-9b serving shapes, within the
    reference's tolerances, and checks the served tokens of reduced yi-9b on
-   the card against the port's CPU path;
+   the card against the port's CPU path; holds the flash-decode kernel
+   against its plain version at yi-9b.decode's shape and on seeded draws
+   (batch 1-32, head dims 16-160, groups 1-16, t from 0 to 4,095 and at the
+   split edges; outputs within 2e-5, caches bitwise) and times it against
+   its bound, its plain version and SDPA over the filled slice;
 3. serves 8 requests on yi-9b at full width and depth (fp32, prompt 512,
    16 new tokens), then 4 requests on stablelm-3b at full width and depth
    (head dim 80, prompt 256, 8 new tokens), and checks for each that every
-   kernel was launched as often as the model needs and that every logit is
+   kernel was launched as often as the model needs (decode_attention once
+   a layer a decode step: 48 a yi-9b step) and that every logit is
    finite; then the recurrent and MoE blocks: reduced jamba, xlstm, grok
    and arctic on the card against the CPU, xlstm-350m served at full width
    and depth (4 slots, prompt 512, 16 new tokens), and grok-1-314b (2
@@ -115,8 +120,9 @@ On one NVIDIA card (written for an H100) it
 12. prints an ``{"autotune": {...}}`` line, a ``{"serving": {...}}``
    line, ``{"chaos": ...}``, ``{"recurrent_moe": ...}``,
    ``{"train": ...}``, ``{"baselines": ...}``, ``{"real_trace": ...}``,
-   ``{"fleet": ...}``, ``{"sharding": ...}`` and ``{"roofline": ...}``
-   lines, a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+   ``{"fleet": ...}``, ``{"sharding": ...}``, ``{"roofline": ...}`` and
+   ``{"decode_attention": ...}`` lines, a ``{"kernels": [...]}`` line and,
+   last, ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero.  Without CUDA, or without this
 checkout's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -317,6 +323,7 @@ def main() -> int:
                 f"{arch} {label} {shape}", shape, torch.float32))
 
     property_sweeps(torch, dev, failures)
+    decode = decode_attention_phase(torch, dev, card)
 
     # The main path at a small size: reduced yi-9b, the same weights on the
     # card and on the CPU (plain versions) give the same logits and tokens.
@@ -347,8 +354,10 @@ def main() -> int:
     n_req, slots, prompt_len, gen_len = 8, 4, 512, 16
     n_batches = -(-n_req // slots)
     n_forwards = n_batches * gen_len  # one prefill + gen_len - 1 decode steps each
+    n_steps = n_batches * (gen_len - 1)  # decode steps
     want_launches = launch_dict(flash_attention=n_batches * cfg.num_layers,
-                                rmsnorm=n_forwards * (2 * cfg.num_layers + 1))
+                                rmsnorm=n_forwards * (2 * cfg.num_layers + 1),
+                                decode_attention=n_steps * cfg.num_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ops.reset_launch_counts()
@@ -362,7 +371,9 @@ def main() -> int:
           f"{res.wall_s:.3f} s ({res.tokens_per_s:.1f} tok/s); prefill "
           f"{res.prefill_s:.3f} s, decode {res.wall_s - res.prefill_s:.3f} s; "
           f"with init {total_s:.1f} s; peak memory {peak_gb:.1f} GB")
-    print(f"launches on the main path: {launches} (expected {want_launches})")
+    print(f"launches on the main path: {launches} (expected {want_launches}); "
+          f"decode_attention a decode step: {launches['decode_attention'] / n_steps:g} "
+          f"(expected {cfg.num_layers})")
     outputs_ok = (len(res.outputs) == n_req
                   and all(o.shape == (gen_len,) and (o >= 0).all()
                           and (o < cfg.vocab_size).all() for o in res.outputs))
@@ -375,7 +386,8 @@ def main() -> int:
     # stablelm-3b at full width and depth (head dim 80): one batch.
     B, prompt_len, _, _, _ = SL_ATTN
     n_req, slots, gen_len, layers = B, B, 8, get_arch("stablelm-3b").num_layers
-    want_sl = launch_dict(flash_attention=layers, rmsnorm=gen_len * (2 * layers + 1))
+    want_sl = launch_dict(flash_attention=layers, rmsnorm=gen_len * (2 * layers + 1),
+                          decode_attention=(gen_len - 1) * layers)
     ops.reset_launch_counts()
     res = serve("stablelm-3b", reduced=False, n_requests=n_req, batch_slots=slots,
                 prompt_len=prompt_len, gen_len=gen_len, device="cuda")
@@ -492,6 +504,8 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by, library_ms=t_lib))
 
     rows.extend(train.pop("rows"))
+    decode["row"]["launches"] = path_launches["decode_attention"]
+    rows.append(decode.pop("row"))
 
     profile_main_path(torch, dev, build_model, cfg)
 
@@ -533,6 +547,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"sharding": sharding}))
     print(json.dumps({"roofline": roofline}))
+    print(json.dumps({"decode_attention": decode}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -596,6 +611,164 @@ def property_sweeps(torch, dev, failures):
         failures.append(f"flash_attention property sweep: {attn:.3e}")
     if not ok_norm:
         failures.append(f"rmsnorm property sweep: {norm:.3e}, |rms - 1| {rms:.3e}")
+
+
+# The flash-decode kernel's checks and times: yi-9b.decode's shape (batch 32,
+# a 4,096-position cache, 32 query heads over 4 k/v heads of 128) at the
+# benchmark window's first and last positions, then seeded draws over batch
+# 1-32, head dims 64/80/128, groups 1-12 and t from 0 to 4,095.
+DECODE_YI = (32, 4096, 32, 4, 128)  # B, S, H, KV, hd
+DECODE_TS = (1920, 2505)
+DECODE_PREFILL_B = 4                # yi-9b.prefill's decode steps
+DECODE_DRAWS = 40
+DECODE_TOL = ATTN_TOL["float32"]
+
+
+def decode_attention_phase(torch, dev, card):
+    """The flash-decode kernel (``csrc/decode_attention.cu``) on the card.
+
+    Checks: each case runs ``ops.decode_attention`` and the plain version
+    (``kernels.ref.decode_attention_ref``) on the same inputs, caches filled
+    with noise at every position (so a read past t shows); the output must
+    lie within 2e-5 of the plain one, both caches must be bitwise equal to
+    the plain version's afterwards (position t written, nothing else), and
+    the call must count one launch.  Cases: yi-9b.decode's shape at t 1,920
+    and 2,505; seeded draws of batch, head dim, group, k/v heads, cache
+    length and t, with t at 0, at S - 1, at random, and at the split edges
+    (where the split count grows by one, or where every split has one
+    length); the head dims 16, 32 and 160 and a group of 16 once each.
+    Times (yi-9b's shapes, fp32): the kernel's ms (CUDA events) and device
+    ms (profiler) against its bound (the filled k/v read once at 3.35 TB/s),
+    the plain version and ``F.scaled_dot_product_attention`` over the filled
+    slice (the library's yardstick only), at batch 32 and at the prefill
+    cell's batch 4.  Returns the kernel table's row and the check summary;
+    any failure raises."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(25)
+    failures, worst = [], 0.0
+
+    def make(B, S, H, KV, hd):
+        return (torch.randn((B, 1, H, hd), generator=gen, device=dev),
+                torch.randn((B, 1, KV, hd), generator=gen, device=dev),
+                torch.randn((B, 1, KV, hd), generator=gen, device=dev),
+                torch.randn((B, S, KV, hd), generator=gen, device=dev),
+                torch.randn((B, S, KV, hd), generator=gen, device=dev))
+
+    def case(label, B, S, H, KV, hd, t):
+        nonlocal worst
+        q, kn, vn, kc, vc = make(B, S, H, KV, hd)
+        kr, vr = kc.clone(), vc.clone()
+        want, _, _ = ref.decode_attention_ref(q, kn, vn, kr, vr, t)
+        before = da.launches
+        got, k_out, v_out = ops.decode_attention(q, kn, vn, kc, vc, t)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        caches = bool(torch.equal(kc, kr) and torch.equal(vc, vr)) and k_out is kc and v_out is vc
+        ok = (err <= DECODE_TOL and caches and da.launches == before + 1
+              and got.shape == q.shape and bool(torch.isfinite(got).all()))
+        worst = max(worst, err)
+        n = da.plan_splits(t, B, KV, sms)
+        print(f"  decode_attention {label:34s} B={B:2d} S={S:4d} H={H:2d} KV={KV} hd={hd:3d} "
+              f"t={t:4d} splits {n:3d}: max_abs_err={err:.3e} tol={DECODE_TOL:g} "
+              f"caches bitwise {caches} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"decode_attention {label} {(B, S, H, KV, hd, t)}: err {err:.3e}, "
+                            f"caches {caches}")
+        del q, kn, vn, kc, vc, kr, vr, want, got
+
+    def split_edge(B, KV, S, grows, rng):
+        """A t where the plan's split count grows by one (``grows``), or
+        where its splits are of one length, searched from a random start;
+        None if S has none."""
+        for t in list(range(int(rng.integers(1, max(2, S))), S)) + list(range(1, S)):
+            n = da.plan_splits(t, B, KV, sms)
+            if n > 1 and (n > da.plan_splits(t - 1, B, KV, sms) if grows
+                          else (t + 1) % n == 0):
+                return t
+        return None
+
+    print("decode_attention against its plain version:")
+    B, S, H, KV, hd = DECODE_YI
+    for t in DECODE_TS:
+        case("yi-9b.decode", B, S, H, KV, hd, t)
+    case("yi-9b.prefill's decode", DECODE_PREFILL_B, S, H, KV, hd, S - 1)
+    case("reduced configs, hd 16", 2, 80, 4, 4, 16, 70)
+    case("hd 32, G 2", 3, 300, 8, 4, 32, 257)
+    case("pixtral-12b, hd 160", 4, 1024, 32, 8, 160, 900)
+    case("G 16", 2, 700, 32, 2, 128, 640)
+    rng = np.random.default_rng(25)
+    for i in range(DECODE_DRAWS):
+        B = int(rng.choice([1, 2, 3, 4, 8, 16, 32]))
+        hd = int(rng.choice([64, 80, 128]))
+        G = int(rng.integers(1, 13))
+        KV = int(rng.choice([k for k in (1, 2, 4, 8) if B * k <= 64]))
+        S = int(rng.choice([1, 64, 100, 1024, 4096] if B * KV <= 16 else [1, 64, 100, 1024]))
+        kind = ("zero", "last", "random", "edge_grows", "edge_even")[i % 5]
+        t = {"zero": 0, "last": S - 1, "random": int(rng.integers(0, S))}.get(kind)
+        if t is None:
+            t = split_edge(B, KV, S, kind == "edge_grows", rng)
+            if t is None:
+                kind, t = "random", int(rng.integers(0, S))
+        case(f"draw {i} ({kind})", B, S, G * KV, KV, hd, t)
+    print(f"decode_attention: worst max_abs_err {worst:.3e} over {DECODE_DRAWS + 7} cases")
+    if failures:
+        raise SystemExit("decode_attention checks failed:\n  " + "\n  ".join(failures))
+
+    # -- times
+    def timed(B, S, H, KV, hd, t, *, plain=True):
+        args = make(B, S, H, KV, hd)
+
+        def kernel(q, kn, vn, kc, vc):
+            return da.decode_attention_cuda(q, kn, vn, kc, vc, t)
+
+        ms = cuda_time_ms(torch, kernel, [args], iters=50)
+        dev_ms, n_ops, parts = device_ms(torch, kernel, [args], iters=20)
+        plain_ms = (cuda_time_ms(torch, lambda *a: ref.decode_attention_ref(*a, t), [args],
+                                 iters=5) if plain else None)
+        q, _, _, kc, vc = args
+        lib_args = [(q.transpose(1, 2).contiguous(), kc[:, :t + 1].transpose(1, 2).contiguous(),
+                     vc[:, :t + 1].transpose(1, 2).contiguous())]
+        lib_ms = cuda_time_ms(torch, lambda qs, ks, vs: F.scaled_dot_product_attention(
+            qs, ks, vs, enable_gqa=True), lib_args, iters=20)
+        n_bytes = 4 * 2 * B * KV * (t + 1) * hd  # the filled k and v, once
+        b_ms, b_by = bound(n_bytes, 4 * B * H * (t + 1) * hd, "float32")
+        del args, lib_args
+        return dict(ms=ms, device_ms=dev_ms, device_ops=n_ops, parts=parts, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    achieved_tb_s=n_bytes / (dev_ms * 1e-3) / 1e12)
+
+    times = {}
+    B, S, H, KV, hd = DECODE_YI
+    for Bt, t in [(B, t) for t in DECODE_TS] + [(DECODE_PREFILL_B, t) for t in (S // 4, S - 1)]:
+        r = timed(Bt, S, H, KV, hd, t, plain=Bt == B)
+        times[f"B{Bt}_t{t}"] = r
+        plain = f"{r['plain_ms']:.4f} ms" if r["plain_ms"] is not None else "not timed"
+        print(f"time decode_attention ({Bt}, {S}, {H}, {KV}, {hd}) t={t} fp32: kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms a call, {r['device_ops']} "
+              f"device ops: {', '.join(f'{k} {v:.4f}' for k, v in r['parts'].items())}; "
+              f"{r['achieved_tb_s']:.3f} TB/s), plain {plain}, sdpa over the filled slice "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}; "
+              f"x48 layers: kernel {48 * r['device_ms']:.3f} ms, bound {48 * r['bound_ms']:.3f} "
+              f"ms; {card}")
+    torch.cuda.empty_cache()
+    main = times[f"B{B}_t{DECODE_TS[1]}"]
+    row = dict(name="decode_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/decode_attention.cu",
+               replaces="no Pallas site: src/repro/models/attention.py decode_attention_local "
+                        "(plain jnp)",
+               launches=0, max_abs_err=worst, ms=main["ms"], device_ms=main["device_ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=main["library_ms"])
+    phase_s = time.perf_counter() - t_phase
+    print(f"decode_attention: phase {phase_s:.1f} s")
+    return dict(row=row, times=times, worst=worst, phase_s=phase_s)
 
 
 def cuda_time_ms(torch, fn, sets, iters=50):
@@ -695,7 +868,8 @@ def bound(n_bytes, n_ops, dtype):
 def launch_dict(**counts):
     """A full ``ops.launch_counts()`` dict: the given counts, every other
     kernel 0 (a serving run launches no backward kernel)."""
-    out = {"flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0, "rmsnorm_bwd": 0}
+    out = {"flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
+           "decode_attention": 0}
     for k, n in counts.items():
         if k not in out:
             raise KeyError(k)
@@ -839,7 +1013,8 @@ def recurrent_moe_phase(torch, dev, card):
     # -- 2. xlstm-350m at full width and depth, through serve
     cfg = get_arch("xlstm-350m")
     G = 16
-    want = launch_dict(flash_attention=cfg.attn_layers, rmsnorm=G * _norms_per_forward(cfg))
+    want = launch_dict(flash_attention=cfg.attn_layers, rmsnorm=G * _norms_per_forward(cfg),
+                       decode_attention=(G - 1) * cfg.attn_layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -876,7 +1051,8 @@ def recurrent_moe_phase(torch, dev, card):
         cfg = dataclasses.replace(base, num_layers=depth,
                                   layer_pattern=tuple(base.layer_pattern)[:depth])
         want = launch_dict(flash_attention=cfg.attn_layers,
-                           rmsnorm=G * _norms_per_forward(cfg))
+                           rmsnorm=G * _norms_per_forward(cfg),
+                           decode_attention=(G - 1) * cfg.attn_layers)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model = Model(cfg, device=dev)
@@ -2685,7 +2861,9 @@ def sharding_phase(torch, dev, card):
     ``make_test_mesh(1, 1)``; yi-9b at full width and depth, fp32, prefilled
     at 4 x 512 tokens, then 16 greedy decode steps, once with
     ``decode_attn="sharded"`` (``decode_attention_sharded``: its all-reduces
-    over the mesh's ``model`` group) and once ``"local"``: gated on equal
+    over the mesh's ``model`` group) and once ``"local"`` with the plain
+    local version (the sharded step's own plain ops; the flash-decode
+    kernel is held against it in ``decode_attention_phase``): gated on equal
     tokens, every step's logits within 1e-4 and the caches within 1e-6,
     with exact kernel launch counts; prints decode ms a step both ways.
     (b) stablelm-3b's full-width parameters, made on the host with numpy,
@@ -2703,7 +2881,7 @@ def sharding_phase(torch, dev, card):
     from repro_torch import tree as tree_lib
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs.base import get_arch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch.elastic import reshard_tree
     from repro_torch.launch.mesh import dp_axes_of, make_test_mesh
     from repro_torch.models import attention as attn_lib
@@ -2729,13 +2907,17 @@ def sharding_phase(torch, dev, card):
         params = models["local"].init(torch.Generator(device=dev).manual_seed(0))
         prompts = torch.from_numpy(_prompts(cfg.vocab_size, (B, S))).to(dev)
         calls = [0]
-        sharded_fn = attn_lib.decode_attention_sharded
+        sharded_fn, local_fn = attn_lib.decode_attention_sharded, attn_lib.decode_attention_local
 
         def counted(*a, **k):
             calls[0] += 1
             return sharded_fn(*a, **k)
 
         attn_lib.decode_attention_sharded = counted
+        # the sharded path's partial attention is plain torch ops; it is held
+        # against the plain local version, which it equals bitwise (the
+        # flash-decode kernel has its own checks in decode_attention_phase)
+        attn_lib.decode_attention_local = ref.decode_attention_ref
         ops.reset_launch_counts()
         runs = {}
         try:
@@ -2757,6 +2939,7 @@ def sharding_phase(torch, dev, card):
                     runs[name] = (torch.stack(tokens), torch.stack(step_logits), cache, step_s)
         finally:
             attn_lib.decode_attention_sharded = sharded_fn
+            attn_lib.decode_attention_local = local_fn
         launches = ops.launch_counts()
         del filled, params
         want = launch_dict(flash_attention=cfg.num_layers,

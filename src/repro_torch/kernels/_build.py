@@ -28,6 +28,7 @@ SOURCES = {
     "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
     "rmsnorm": CSRC / "rmsnorm.cu",
     "rmsnorm_bwd": CSRC / "rmsnorm_bwd.cu",
+    "decode_attention": CSRC / "decode_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -120,6 +121,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+_SMS: dict[int, int] = {}  # streaming multiprocessors of each device
+
+
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (read once)."""
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
 
 
 def call_on_stream(index: int, fn, *args) -> int:

@@ -23,15 +23,31 @@ autograd makes the backward op a node of a traced training step.  Only
 DTensor, ``meta`` and fake tensors take that route; a plain CPU or CUDA
 tensor takes the direct path above, which adds no dispatcher time to the
 host-bound decode step.
+
+``decode_attention`` (one decode step against a preallocated k/v cache) has
+no Pallas counterpart: the JAX package's is plain jnp.  A plain CUDA tensor
+launches the hand-written flash-decode kernel or raises.  Only tensors that
+do no work on the card compute the plain version,
+``kernels.ref.decode_attention_ref``, op by op: CPU tensors (a DTensor over
+CPU shards too), ``meta`` tensors and fake tensors of a trace.  Any other
+tensor on the card, such as a DTensor over CUDA shards, raises: it has no
+sharding rule, and its caller runs the kernel on the local shards.  It is
+not a registered op: the roofline walker and the dry-run
+(``launch/dryrun.py``, ``make_fx`` on ``meta`` tensors) keep costing the
+plain ops, as XLA costs the JAX package's jnp decode, so their counts do not
+change.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
-from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
-                                     flash_attention_ref, rmsnorm_bwd_ref, rmsnorm_ref)
+from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,
+                                     flash_attention_lse_ref, flash_attention_ref,
+                                     rmsnorm_bwd_ref, rmsnorm_ref)
 
 
 def _route(t: torch.Tensor, what: str) -> str:
@@ -137,6 +153,22 @@ def rmsnorm(x, scale, *, eps: float = 1e-5, row_block: int = 256):
     if route == "cuda":
         return _rms.rmsnorm_cuda(x, scale, eps=eps)
     return rmsnorm_ref(x, scale, eps=eps)
+
+
+def decode_attention(q, k_new, v_new, k_cache, v_cache, t: int):
+    """One decode step of q (B,1,H,hd) against caches (B,S,KV,hd): k_new and
+    v_new (B,1,KV,hd) written into the caches at position ``t`` in place,
+    positions ``<= t`` attended.  Returns (out (B,1,H,hd), k_cache,
+    v_cache).  The kernel for a plain CUDA tensor, the plain version for a
+    tensor that does no work on the card; raises on any other."""
+    tensors = (q, k_new, v_new, k_cache, v_cache)
+    if _route(q, "decode_attention") == "cuda":
+        return _da.decode_attention_cuda(*tensors, t)
+    for x in tensors:
+        if x.device.type == "cuda" and not is_fake(x):
+            raise ValueError(f"decode_attention: no kernel for a {type(x).__name__} on "
+                             f"{x.device}; call it on the local shards")
+    return decode_attention_ref(*tensors, t)
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +329,8 @@ _SHARDING_REGISTERED = False
 def launch_counts() -> dict[str, int]:
     """Kernel launches made by each wrapper since the last reset."""
     return {"flash_attention": _fa.launches, "flash_attention_bwd": _fa.bwd_launches,
-            "rmsnorm": _rms.launches, "rmsnorm_bwd": _rms.bwd_launches}
+            "rmsnorm": _rms.launches, "rmsnorm_bwd": _rms.bwd_launches,
+            "decode_attention": _da.launches}
 
 
 def reset_launch_counts() -> None:
@@ -305,3 +338,4 @@ def reset_launch_counts() -> None:
     _fa.bwd_launches = 0
     _rms.launches = 0
     _rms.bwd_launches = 0
+    _da.launches = 0

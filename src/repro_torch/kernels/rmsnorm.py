@@ -29,7 +29,6 @@ launches = 0
 bwd_launches = 0
 _lib: ctypes.CDLL | None = None
 _bwd_lib: ctypes.CDLL | None = None
-_SMS: dict[int, int] = {}  # streaming multiprocessors of each device
 
 
 def _load() -> ctypes.CDLL:
@@ -125,10 +124,7 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     scale32 = scale
     if scale.dtype != torch.float32 or not scale.is_contiguous():
         scale32 = scale.to(torch.float32).contiguous()
-    sms = _SMS.get(device.index)
-    if sms is None:
-        sms = _SMS[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
+    sms = _build.sm_count(device.index)
     # two blocks per SM, each over a contiguous run of rows, each writing one
     # row of partial dscale sums
     n_parts = min(rows, 2 * sms)

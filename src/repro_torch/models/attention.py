@@ -81,22 +81,12 @@ def decode_attention_local(q, k_new, v_new, k_cache, v_cache, t: int):
     Writes k_new/v_new (B,1,KV,hd) into the caches IN PLACE at position
     ``t``: the JAX version returns updated copies, which here would cost a
     copy of the whole cache per layer per step.  Attends to positions
-    ``<= t``.  Returns (out (B,1,H,hd), k_cache, v_cache)."""
-    k_cache[:, t] = k_new[:, 0]
-    v_cache[:, t] = v_new[:, 0]
-    B, S, KV, hd = k_cache.shape
-    H = q.shape[2]
-    scale = 1.0 / (hd ** 0.5)
-    qg = q.reshape(B, KV, H // KV, hd).float()
-    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.float()) * scale
-    mask = torch.arange(S, device=q.device) <= t
-    s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1)
-    o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
-    out = (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
-    return out.reshape(B, 1, H, hd), k_cache, v_cache
+    ``<= t``.  Returns (out (B,1,H,hd), k_cache, v_cache).
+
+    Goes through ``kernels.ops.decode_attention``: the hand-written
+    flash-decode kernel on CUDA, the plain version on the CPU."""
+    return ops.decode_attention(q.contiguous(), k_new.contiguous(), v_new.contiguous(),
+                                k_cache, v_cache, t)
 
 
 # ---------------------------------------------------------------------------

@@ -246,8 +246,10 @@ def test_cpu_path_launches_no_kernel():
     ops.rmsnorm(x, torch.ones(8))
     q = torch.randn(1, 16, 2, 16)
     ops.flash_attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous())
+    kc = torch.randn(1, 16, 1, 16)
+    ops.decode_attention(q[:, :1].contiguous(), kc[:, :1], kc[:, :1], kc, kc.clone(), 4)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                   "rmsnorm": 0, "rmsnorm_bwd": 0}
+                                   "rmsnorm": 0, "rmsnorm_bwd": 0, "decode_attention": 0}
 
 
 def test_other_devices_and_bad_blocks_raise():
@@ -388,12 +390,18 @@ def test_build_names_libraries_by_source_and_honours_build_dir(monkeypatch, tmp_
     assert len(set(paths.values())) == len(_build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     entry = {"flash_attention": "flash_attention_fwd", "rmsnorm": "rmsnorm_fwd",
-             "flash_attention_bwd": "flash_attention_bwd", "rmsnorm_bwd": "rmsnorm_bwd"}
+             "flash_attention_bwd": "flash_attention_bwd", "rmsnorm_bwd": "rmsnorm_bwd",
+             "decode_attention": "decode_attention_fwd"}
     assert set(_build.SOURCES) == set(entry)
     for name, src in _build.SOURCES.items():
         text = src.read_text()
-        # names the TPU kernel it replaces, or whose gradient it computes
-        assert f"src/repro/kernels/{name.removesuffix('_bwd')}.py" in text
+        # names the TPU kernel it replaces, or whose gradient it computes, or
+        # says that it replaces none and names the plain jnp it stands for
+        if name == "decode_attention":
+            assert "Replaces no Pallas kernel" in text
+            assert "src/repro/models/attention.py, decode_attention_local" in text
+        else:
+            assert f"src/repro/kernels/{name.removesuffix('_bwd')}.py" in text
         assert f'extern "C" int {entry[name]}(' in text
 
 
