@@ -1,22 +1,14 @@
-"""The system under test: the port's ``Model`` built from a configuration
-file's sizes, and a check that the benchmark's weights have the layout its
-``abstract_params()`` lists."""
+"""The system under test: the port's ``Model`` built from the ``ArchConfig``
+that the configuration's family gives for its sizes, and a check that the
+benchmark's weights have the layout its ``abstract_params()`` lists."""
 from __future__ import annotations
 
-from portbench.lib.dims import Dims
 
-
-def model(dm: Dims, cfg: dict, device):
-    from repro_torch.configs.base import ArchConfig
+def model(fam, dm, cfg: dict, device):
     from repro_torch.models.model_zoo import Model
     from repro_torch.models.transformer import RunConfig
 
-    arch = ArchConfig(name=dm.name, family="dense", num_layers=dm.layers, d_model=dm.d_model,
-                      num_heads=dm.heads, num_kv_heads=dm.kv_heads, d_ff=dm.d_ff,
-                      vocab_size=dm.vocab, head_dim=dm.head_dim, rope_theta=dm.rope_theta,
-                      norm_eps=dm.norm_eps, gated_mlp=True, tie_embeddings=False,
-                      source=cfg["source"])
-    return Model(arch, RunConfig(), device=device)
+    return Model(fam.arch(dm, cfg), RunConfig(), device=device)
 
 
 def check_layout(m, params: dict) -> None:

@@ -36,11 +36,9 @@ import time
 import torch
 
 from portbench.drivers import Run, collector_pauses, port
-from portbench.lib import judge, traffic, weights
+from portbench.lib import family, judge, traffic, weights
 from portbench.lib.cell import derive
-from portbench.lib.dims import Dims, dims
 from portbench.lib.trace import traced
-from portbench.reference import model as ref_model
 
 
 class _Marks:
@@ -80,8 +78,8 @@ class _Batch:
 
 
 class Server:
-    def __init__(self, m, params, dm: Dims, wl: dict, seed: int, device):
-        self.m, self.params, self.dm, self.wl = m, params, dm, wl
+    def __init__(self, m, params, fam, dm, wl: dict, seed: int, device):
+        self.m, self.params, self.fam, self.dm, self.wl = m, params, fam, dm, wl
         self.seed, self.device = seed, device
         self.marks = _Marks(device)
         self.batches: list[_Batch] = []
@@ -215,15 +213,14 @@ def _sample(srv: Server, batches: list[int], n: int, seed: int) -> dict:
 def _check(srv: Server, picked: dict, controls: bool) -> tuple[dict, dict]:
     """(the numbers, the control's readings) for the picked requests: the
     reference runs over each prompt and its served tokens."""
-    dm, got, ctl = srv.dm, [], []
+    fam, dm, got, ctl = srv.fam, srv.dm, [], []
     for i, rows in picked.items():
         b = srv.batches[i]
         tokens = torch.cat([b.prompts[rows], b.out[rows, :b.n_out - 1]], dim=1)
-        ref = ref_model.forward(srv.params, tokens, dm, logits_from=b.length - 1)
+        ref = fam.forward(srv.params, tokens, dm, logits_from=b.length - 1)
         got.append(judge.served(ref, b.out[rows, :b.n_out], b.top[rows, :b.n_out]))
         if controls:
-            low = ref_model.forward(srv.params, tokens, dm, prec="tf32",
-                                    logits_from=b.length - 1)
+            low = fam.forward(srv.params, tokens, dm, prec="tf32", logits_from=b.length - 1)
             top, toks = low.max(dim=-1)
             ctl.append(judge.served(ref, toks, top))
             del low, top, toks
@@ -234,13 +231,14 @@ def _check(srv: Server, picked: dict, controls: bool) -> tuple[dict, dict]:
 
 def run(r: Run) -> dict:
     wl, dev = r.workload, r.device
-    dm = dims(r.config)
-    m = port.model(dm, r.config, dev)
+    fam = family.of(r.config)
+    dm = fam.dims(r.config)
+    m = port.model(fam, dm, r.config, dev)
     r.mark("port")
-    params = weights.make(dm, r.seed, dev)
+    params = weights.make(fam, dm, r.seed, dev)
     port.check_layout(m, params)
     r.mark("weights")
-    srv = Server(m, params, dm, wl, r.seed, dev)
+    srv = Server(m, params, fam, dm, wl, r.seed, dev)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     out: dict = {}
@@ -270,6 +268,7 @@ def run(r: Run) -> dict:
         numbers, readings = _check(srv, picked, r.controls)
     out.update(e2e=win["e2e"], attempted=win["attempted"], failed=0, numbers=numbers,
                readings=readings,
-               record={"dims": dm, "workload": wl, "window_s": window_s, "units": win["units"],
-                       "trace": out.get("trace"), "trace_units": traced_units})
+               record={"family": r.config["family"], "dims": dm, "workload": wl,
+                       "window_s": window_s, "units": win["units"], "trace": out.get("trace"),
+                       "trace_units": traced_units})
     return out

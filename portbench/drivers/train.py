@@ -23,8 +23,7 @@ import time
 import torch
 
 from portbench.drivers import Run, port
-from portbench.lib import judge, traffic, weights
-from portbench.lib.dims import dims
+from portbench.lib import family, judge, traffic, weights
 from portbench.lib.trace import traced
 from portbench.reference import train as ref_train
 
@@ -41,13 +40,14 @@ def run(r: Run) -> dict:
     from repro_torch.optim import optimizer as opt_lib
 
     wl, dev = r.workload, r.device
-    dm = dims(r.config)
+    fam = family.of(r.config)
+    dm = fam.dims(r.config)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    m = port.model(dm, r.config, dev)
+    m = port.model(fam, dm, r.config, dev)
     r.mark("port")
     ocfg = opt_lib.AdamWConfig(**wl["optimizer"])
-    params = weights.make(dm, r.seed, dev)
+    params = weights.make(fam, dm, r.seed, dev)
     port.check_layout(m, params)
     r.mark("weights")
     opt_state = opt_lib.init_state(params, ocfg)
@@ -67,10 +67,10 @@ def run(r: Run) -> dict:
     for i in range(wl["setup_steps"]):
         prog["losses"].append(one())
         if i == 0:
-            prog["grad"] = _norms(weights.leaves(opt_state["m"]), 1.0 / (1.0 - ocfg.b1))
+            prog["grad"] = _norms(fam.leaves(opt_state["m"]), 1.0 / (1.0 - ocfg.b1))
     with torch.no_grad():
-        p0 = weights.leaves(weights.make(dm, r.seed, dev))
-        prog["change"] = _norms(p - q for p, q in zip(weights.leaves(params), p0))
+        p0 = fam.leaves(weights.make(fam, dm, r.seed, dev))
+        prog["change"] = _norms(p - q for p, q in zip(fam.leaves(params), p0))
         del p0
     sync()
     out: dict = {"window_start": time.perf_counter()}
@@ -88,15 +88,15 @@ def run(r: Run) -> dict:
     del params, opt_state, step, m
     if cuda:
         torch.cuda.empty_cache()
-    ref = ref_train.steps(dm, wl, r.seed, dev, wl["setup_steps"])
+    ref = ref_train.steps(fam, dm, wl, r.seed, dev, wl["setup_steps"])
     readings = {}
     if r.controls:
         for name, kw in CONTROLS.items():
-            alt = ref_train.steps(dm, wl, r.seed, dev, wl["setup_steps"], **kw)
+            alt = ref_train.steps(fam, dm, wl, r.seed, dev, wl["setup_steps"], **kw)
             readings[name] = judge.train_numbers(alt, ref)
     out.update(e2e={"train_tokens_per_s": steps * tokens / window_s}, attempted=steps,
                failed=0, numbers=judge.train_numbers(prog, ref), readings=readings,
-               record={"dims": dm, "workload": wl, "window_s": window_s, "steps": steps,
-                       "trace": out.get("trace"),
+               record={"family": r.config["family"], "dims": dm, "workload": wl,
+                       "window_s": window_s, "steps": steps, "trace": out.get("trace"),
                        "trace_steps": wl["trace_steps"] if r.trace else 0})
     return out

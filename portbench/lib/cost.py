@@ -1,4 +1,6 @@
-"""Operations and bytes from a configuration's shapes, and the H100's peaks.
+"""The kernels' operations and bytes from their shapes, and the H100's peaks.
+A whole step's operations and bytes depend on the model's form and are its
+family's (``families/<family>.py``), counted by the same rules.
 
 Peaks: one NVIDIA H100 SXM5 (80 GB HBM3) at its 700 W limit, NVIDIA's data
 sheet, dense rates without sparsity (copied from the port's
@@ -20,22 +22,9 @@ only; no recomputation is counted.  Every tensor is fp32 (4 bytes).
 """
 from __future__ import annotations
 
-from portbench.lib.dims import Dims
-
 PEAK_TF32 = 495e12
 HBM_BW = 3.35e12
 F32 = 4
-
-
-def block_linear_params(dm: Dims) -> int:
-    """Weights of one block's products: q, k, v, o and the SwiGLU's three."""
-    d, qd, kvd = dm.d_model, dm.heads * dm.head_dim, dm.kv_heads * dm.head_dim
-    return d * qd + 2 * d * kvd + qd * d + 3 * d * dm.d_ff
-
-
-def linear_params(dm: Dims) -> int:
-    """Weights of every block's products (not the embedding or the head)."""
-    return dm.layers * block_linear_params(dm)
 
 
 def causal_pairs(q_len: int, k_len: int) -> int:
@@ -43,45 +32,6 @@ def causal_pairs(q_len: int, k_len: int) -> int:
     against ``k_len`` keys, the queries being the last ``q_len`` positions."""
     past = k_len - q_len
     return q_len * past + q_len * (q_len + 1) // 2
-
-
-def attention_flops(dm: Dims, batch: int, q_len: int, k_len: int) -> float:
-    """QK^T and PV of every layer: 2 products of 2 FLOPs per pair and dim."""
-    return 4.0 * batch * dm.heads * dm.head_dim * causal_pairs(q_len, k_len) * dm.layers
-
-
-def prefill_flops(dm: Dims, batch: int, length: int) -> float:
-    """A prefill of ``batch`` prompts of ``length``: the blocks' products
-    for every token, causal attention, the head at the last position."""
-    tokens = batch * length
-    return (2.0 * tokens * linear_params(dm) + attention_flops(dm, batch, length, length)
-            + 2.0 * batch * dm.vocab * dm.d_model)
-
-
-def decode_flops(dm: Dims, batch: int, position: int) -> float:
-    """One decode step at ``position`` (0-based): one token a sequence
-    against the ``position + 1`` keys then filled."""
-    return (2.0 * batch * (linear_params(dm) + dm.vocab * dm.d_model)
-            + attention_flops(dm, batch, 1, position + 1))
-
-
-def train_flops(dm: Dims, batch: int, length: int) -> float:
-    """Forward and backward of a training step (no recomputation): every
-    product three times (forward, and the two gradients), attention's 2
-    forward products and 4 backward ones, the head at every position."""
-    tokens = batch * length
-    return (6.0 * tokens * (linear_params(dm) + dm.vocab * dm.d_model)
-            + 3.0 * attention_flops(dm, batch, length, length))
-
-
-def decode_bytes(dm: Dims, batch: int, position: int) -> float:
-    """Least bytes of one decode step: every weight read once (the
-    embedding's rows of this step's tokens only), the k/v of the
-    ``position + 1`` filled positions read once, this step's k/v written."""
-    d = dm.d_model
-    weights = (linear_params(dm) + dm.vocab * d + (2 * dm.layers + 1) * d) * F32
-    kv_row = 2 * dm.kv_heads * dm.head_dim * F32 * dm.layers  # k and v of one position
-    return weights + batch * d * F32 + batch * (position + 1) * kv_row + batch * kv_row
 
 
 def flash_fwd(batch: int, q_len: int, k_len: int, heads: int, kv_heads: int,
@@ -101,6 +51,18 @@ def flash_bwd(batch: int, q_len: int, k_len: int, heads: int, kv_heads: int,
     flops = 10.0 * batch * heads * head_dim * causal_pairs(q_len, k_len)
     io = ((4 * batch * q_len * heads + 4 * batch * k_len * kv_heads) * head_dim
           + batch * heads * q_len) * F32
+    return flops, float(io)
+
+
+def flash_decode(rows: int, position: int, heads: int, kv_heads: int,
+                 head_dim: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one flash-decode call at ``position`` (0-based):
+    one query a row against the ``position + 1`` keys then filled, 2
+    products; the k/v of those positions read once, the new token's k/v
+    written into the cache, q read and o written once."""
+    flops = 4.0 * rows * heads * head_dim * (position + 1)
+    kv_row = 2 * kv_heads * head_dim  # k and v of one position
+    io = rows * ((position + 1) * kv_row + kv_row + 2 * heads * head_dim) * F32
     return flops, float(io)
 
 

@@ -1,12 +1,13 @@
 """What the per-layer readers (``metrics/<name>.py``) share.  A reader
 gets the traffic driver's record of its run and returns the metric, or
 None where the record holds nothing to read (an untraced run for a trace
-metric)."""
+metric).  A step's operations and bytes are those of the record's family
+(``lib/family.py``), a kernel's those of ``lib/cost.py``."""
 from __future__ import annotations
 
 import statistics
 
-from portbench.lib import cost
+from portbench.lib import cost, family
 from portbench.lib.trace import kernel_name
 
 
@@ -20,12 +21,12 @@ def idle_share(rec: dict):
 
 def window_flops(rec: dict) -> float:
     """The model FLOPs of the window's units (serving) or steps (training)."""
-    dm = rec["dims"]
+    fam, dm = family.load(rec["family"]), rec["dims"]
     if "steps" in rec:
         wl = rec["workload"]
-        return rec["steps"] * cost.train_flops(dm, wl["batch"], wl["seq_len"])
-    return sum(cost.prefill_flops(dm, u["rows"], u["length"]) if u["kind"] == "prefill"
-               else cost.decode_flops(dm, u["rows"], u["position"]) for u in rec["units"])
+        return rec["steps"] * fam.train_flops(dm, wl["batch"], wl["seq_len"])
+    return sum(fam.prefill_flops(dm, u["rows"], u["length"]) if u["kind"] == "prefill"
+               else fam.decode_flops(dm, u["rows"], u["position"]) for u in rec["units"])
 
 
 def mfu(rec: dict) -> float:
@@ -63,8 +64,8 @@ def decode_bandwidth(rec: dict):
     us = [u for u in decode_units(rec) if "gap_s" in u]
     if not us:
         return None
-    dm = rec["dims"]
-    nbytes = sum(cost.decode_bytes(dm, u["rows"], u["position"]) for u in us)
+    fam, dm = family.load(rec["family"]), rec["dims"]
+    nbytes = sum(fam.decode_bytes(dm, u["rows"], u["position"]) for u in us)
     return 100.0 * nbytes / cost.HBM_BW / sum(u["gap_s"] for u in us)
 
 

@@ -13,5 +13,5 @@ def read(rec):
     dm, wl = rec["dims"], rec["workload"]
     rows = wl["batch"] // wl["microbatches"]
     calls = [(rows, wl["seq_len"], wl["seq_len"], dm.heads, dm.kv_heads, dm.head_dim)] * (
-        rec["trace_steps"] * wl["microbatches"] * dm.layers)
+        rec["trace_steps"] * wl["microbatches"] * dm.attn_layers)
     return kernel_roofline(rec, KERNELS, "flash_bwd_dkdv_kernel", calls, cost.flash_bwd)

@@ -8,6 +8,6 @@ from portbench.lib.readers import kernel_roofline
 def read(rec):
     dm = rec["dims"]
     calls = [(u["rows"], u["length"], u["length"], dm.heads, dm.kv_heads, dm.head_dim)
-             for u in rec["trace_units"] if u["kind"] == "prefill"] * dm.layers
+             for u in rec["trace_units"] if u["kind"] == "prefill"] * dm.attn_layers
     return kernel_roofline(rec, ("flash_fwd_kernel",), "flash_fwd_kernel", calls,
                            cost.flash_fwd)

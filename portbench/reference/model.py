@@ -8,7 +8,9 @@ with RMSNorm ``x * rsqrt(mean(x^2) + eps) * w``, rotary embedding on
 split halves of each head (Hugging Face's ``rotate_half``), causal
 grouped-query attention (query head ``i`` reads k/v head ``i // group``),
 a final RMSNorm and an untied LM head.  The weights are the port's layout
-(``lib.weights``): ``wq`` (d, H, hd), ``wo`` (H, hd, d), and so on.
+(``families/llama.py``): ``wq`` (d, H, hd), ``wo`` (H, hd, d), and so on;
+``dm`` is that family's ``Dims``.  ``to_tf32``, ``mm``, ``rmsnorm``,
+``rope`` and ``attention`` serve other families' references too.
 
 ``prec`` is ``"fp32"`` (the configuration's precision; TF32 must be off on
 the card) or ``"tf32"``, the control: every product's operands rounded to
@@ -19,8 +21,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
-
-from portbench.lib.dims import Dims
 
 SCORES_ELEMS = 1 << 28  # fp32 scores of one attention chunk: 1 GiB
 
@@ -70,7 +70,7 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def attention(q, k, v, dm: Dims, prec: str) -> torch.Tensor:
+def attention(q, k, v, dm, prec: str) -> torch.Tensor:
     """Causal attention of q (B, T, H, hd) against k, v (B, T, KV, hd), a
     batch row and a chunk of heads at a time (at most ``SCORES_ELEMS``
     scores each)."""
@@ -91,7 +91,7 @@ def attention(q, k, v, dm: Dims, prec: str) -> torch.Tensor:
     return torch.stack(rows)
 
 
-def block(p: dict, x: torch.Tensor, dm: Dims, prec: str) -> torch.Tensor:
+def block(p: dict, x: torch.Tensor, dm, prec: str) -> torch.Tensor:
     B, T, d = x.shape
     a = p["attn"]
     h = rmsnorm(x, p["norm1"]["scale"], dm.norm_eps)
@@ -105,7 +105,7 @@ def block(p: dict, x: torch.Tensor, dm: Dims, prec: str) -> torch.Tensor:
     return x + mm(F.silu(mm(h, f["w_gate"], prec)) * mm(h, f["w_in"], prec), f["w_out"], prec)
 
 
-def forward(params: dict, tokens: torch.Tensor, dm: Dims, *, prec: str = "fp32",
+def forward(params: dict, tokens: torch.Tensor, dm, *, prec: str = "fp32",
             logits_from: int = 0, remat: bool = False) -> torch.Tensor:
     """Logits (B, T - logits_from, V) of ``tokens`` (B, T) at positions
     ``logits_from`` on.  ``remat`` recomputes each block in the backward
@@ -121,7 +121,7 @@ def forward(params: dict, tokens: torch.Tensor, dm: Dims, *, prec: str = "fp32",
     return mm(x, params["lm_head"].T, prec)
 
 
-def loss(params: dict, tokens, labels, dm: Dims, *, prec: str = "fp32",
+def loss(params: dict, tokens, labels, dm, *, prec: str = "fp32",
          remat: bool = False) -> torch.Tensor:
     """Mean next-token cross-entropy of ``labels`` given ``tokens``."""
     logits = forward(params, tokens, dm, prec=prec, remat=remat)

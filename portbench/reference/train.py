@@ -10,7 +10,9 @@ gradient norm by leaf before clipping, which picks the leaves whose change
 counts.  ``fault`` plants one of the faults the comparison must catch in
 the reference put in the program's place: ``half_batch`` (the last
 microbatches left out, the mean over the rest) or ``double_leaf`` (the
-first block's ``w_in`` gradient doubled).
+gradient of the first block's largest leaf doubled: ``ffn.w_in`` in the
+Llama form).  ``fam`` is the configuration's family module, whose
+``loss`` is the reference.
 """
 from __future__ import annotations
 
@@ -19,8 +21,6 @@ import math
 import torch
 
 from portbench.lib import traffic, weights
-from portbench.lib.dims import Dims
-from portbench.reference import model
 
 
 def lr_at(opt: dict, step: int) -> float:
@@ -37,16 +37,23 @@ def _norms(ts) -> list[float]:
     return torch.stack([torch.linalg.vector_norm(t) for t in ts]).tolist()
 
 
-def steps(dm: Dims, wl: dict, seed: int, device, n_steps: int, *, prec: str = "fp32",
+def _first_block_largest(fam, dm) -> int:
+    """Index of the first block's largest leaf (the first of equals)."""
+    specs = fam.leaf_specs(dm)
+    first = [i for i, (path, _, _, _) in enumerate(specs) if path[:2] == ("blocks", 0)]
+    return max(first, key=lambda i: math.prod(specs[i][1]))
+
+
+def steps(fam, dm, wl: dict, seed: int, device, n_steps: int, *, prec: str = "fp32",
           fault: str | None = None) -> dict:
     opt = wl["optimizer"]
-    params = weights.make(dm, seed, device)
-    leaves = weights.leaves(params)
+    params = weights.make(fam, dm, seed, device)
+    leaves = fam.leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     m = [torch.zeros_like(p) for p in leaves]
     v = [torch.zeros_like(p) for p in leaves]
-    doubled = weights.leaf_names(dm).index("blocks.0.ffn.w_in")
+    doubled = _first_block_largest(fam, dm)
     n_micro = wl["microbatches"]
     used = n_micro // 2 if fault == "half_batch" else n_micro
     out: dict = {"losses": []}
@@ -56,8 +63,8 @@ def steps(dm: Dims, wl: dict, seed: int, device, n_steps: int, *, prec: str = "f
         total = 0.0
         for j in range(used):
             sl = slice(j * rows, (j + 1) * rows)
-            loss = model.loss(params, batch["tokens"][sl], batch["labels"][sl], dm, prec=prec,
-                              remat=True)
+            loss = fam.loss(params, batch["tokens"][sl], batch["labels"][sl], dm, prec=prec,
+                            remat=True)
             loss.backward()
             total += loss.item()
         out["losses"].append(total / used)
@@ -85,6 +92,6 @@ def steps(dm: Dims, wl: dict, seed: int, device, n_steps: int, *, prec: str = "f
                 out["grad"] = _norms(grads)
             del grads
     with torch.no_grad():
-        p0 = weights.leaves(weights.make(dm, seed, device))
+        p0 = fam.leaves(weights.make(fam, dm, seed, device))
         out["change"] = _norms(p - q for p, q in zip(leaves, p0))
     return out

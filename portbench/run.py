@@ -5,8 +5,9 @@
 From the root of a checkout: the port is ``src/repro_torch``; its kernels
 build at first use into ``build/kernels/`` there.  The cell's traffic is
 ``portbench/workloads/<cell>.json``, its driver ``portbench/drivers/<kind>.py``,
-its configuration the file its entry in ``BENCHMARK.json`` names, and each
-per-layer metric ``portbench/metrics/<metric>.py``.
+its configuration the file its entry in ``BENCHMARK.json`` names, that
+file's family ``portbench/families/<family>.py``, and each per-layer metric
+``portbench/metrics/<metric>.py``.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or

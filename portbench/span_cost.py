@@ -46,8 +46,7 @@ def cost(tiny: bool, stretches: int, steps: int) -> dict:
 
     from portbench.drivers import port
     from portbench.drivers.serve import Server
-    from portbench.lib import weights
-    from portbench.lib.dims import dims
+    from portbench.lib import family, weights
 
     try:
         from repro_torch.spans import span
@@ -65,8 +64,10 @@ def cost(tiny: bool, stretches: int, steps: int) -> dict:
     acts = {"device": [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU],
             "host": [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])}
     seed = 2**33 + 977
-    dm = dims(cfg)
-    srv = Server(port.model(dm, cfg, dev), weights.make(dm, seed, dev), dm, wl, seed, dev)
+    fam = family.of(cfg)
+    dm = fam.dims(cfg)
+    srv = Server(port.model(fam, dm, cfg, dev), weights.make(fam, dm, seed, dev), fam, dm, wl,
+                 seed, dev)
     res = {m: {"host_ms": [], "wall_ms": [], "span_us": []} for m in MODES}
     n = 2000 if tiny else 20000
     with torch.inference_mode():

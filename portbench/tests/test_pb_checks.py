@@ -9,10 +9,11 @@ import pytest
 import torch
 
 from portbench.tests import tiny
-from portbench.lib import judge
+from portbench.lib import cell, judge
 
-SERVING = ("yi-9b.decode", "yi-9b.prefill")
-CELLS = SERVING + ("stablelm-3b.train",)
+CELLS = tuple(w["name"] for w in cell.load_benchmark()["workloads"])
+SERVING = tuple(n for n in CELLS if cell.workload(n)["driver"] == "serve")
+TRAINING = tuple(n for n in CELLS if cell.workload(n)["driver"] == "train")
 
 
 def _serving(name: str) -> dict:
@@ -121,5 +122,6 @@ def _train_answer_altered(monkeypatch):
                                    _train_answer_altered], ids=lambda f: f.__name__.strip("_"))
 def test_a_broken_training_step_is_not_correct(monkeypatch, fault):
     fault(monkeypatch)
-    res, _ = tiny.run("stablelm-3b.train", tiny.workload("stablelm-3b.train"), tiny.config())
-    assert not res["correct"], res["checks"]
+    for name in TRAINING:
+        res, _ = tiny.run(name, tiny.workload(name), tiny.config())
+        assert not res["correct"], (name, res["checks"])

@@ -1,7 +1,8 @@
-"""What a run loads, in a fresh process: a run of every cell (small, on the
-CPU) loads neither JAX nor the JAX package, and the reference loads nothing
-of the port.  Top-level names are compared whole: ``repro_torch`` begins
-with ``repro`` and is not it."""
+"""What a run loads, in a fresh process: a run of every cell of
+``BENCHMARK.json`` (at its ``cpu_test`` sizes, on the CPU) loads neither
+JAX nor the JAX package, and the reference, with every family module that
+names it, loads nothing of the port.  Top-level names are compared whole:
+``repro_torch`` begins with ``repro`` and is not it."""
 from __future__ import annotations
 
 import json
@@ -17,7 +18,8 @@ sys.path[:0] = [{root!r}, {src!r}]
 from portbench.tests import tiny
 from portbench.lib import cell
 from portbench import run
-for name in ("yi-9b.decode", "yi-9b.prefill", "stablelm-3b.train"):
+for w in cell.load_benchmark()["workloads"]:
+    name = w["name"]
     res, _ = tiny.run(name, tiny.workload(name), tiny.config())
     assert res["correct"], (name, res)
 for m in cell.load_benchmark()["per_layer"]:
@@ -29,6 +31,9 @@ REFERENCE_ONLY = """
 import json, sys
 sys.path[:0] = [{root!r}, {src!r}]
 import portbench.reference.model, portbench.reference.train
+from portbench.lib import family
+for path in sorted(family.DIR.glob("*.py")):
+    family.load(path.stem)
 print(json.dumps(sorted({{k.split(".")[0] for k in sys.modules}})))
 """
 

@@ -9,8 +9,7 @@ import torch
 
 from portbench.tests import tiny
 from portbench.drivers import port
-from portbench.lib import traffic, weights
-from portbench.lib.dims import dims
+from portbench.lib import family, traffic, weights
 from portbench.reference import model as ref_model
 from portbench.reference import train as ref_train
 
@@ -23,16 +22,17 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 
 def _setup(arch: str, seed: int = 2**31 + 99):
     cfg = tiny.config(**SHAPES[arch])
-    dm = dims(cfg)
-    m = port.model(dm, cfg, torch.device("cpu"))
-    params = weights.make(dm, seed, "cpu")
+    fam = family.of(cfg)
+    dm = fam.dims(cfg)
+    m = port.model(fam, dm, cfg, torch.device("cpu"))
+    params = weights.make(fam, dm, seed, "cpu")
     port.check_layout(m, params)
-    return cfg, dm, m, params
+    return fam, dm, m, params
 
 
 @pytest.mark.parametrize("arch", SHAPES)
 def test_prefill_and_decode_match_the_reference(arch):
-    cfg, dm, m, params = _setup(arch)
+    fam, dm, m, params = _setup(arch)
     wl = {"batch": 3, "prompt_lengths": [20]}
     prompts = traffic.prompts(dm, wl, 5, 0, "cpu")
     with torch.inference_mode():
@@ -44,20 +44,20 @@ def test_prefill_and_decode_match_the_reference(arch):
             logits.append(lg)
             toks.append(lg.argmax(-1))
         seq = torch.cat([prompts, torch.stack(toks[:-1], 1)], 1)
-        ref = ref_model.forward(params, seq, dm, logits_from=19)
+        ref = fam.forward(params, seq, dm, logits_from=19)
     torch.testing.assert_close(torch.stack(logits, 1), ref, **TOL)
 
 
 @pytest.mark.parametrize("arch", SHAPES)
 def test_loss_and_gradients_match_the_reference(arch):
-    cfg, dm, m, params = _setup(arch)
+    fam, dm, m, params = _setup(arch)
     batch = traffic.train_batch(dm, {"batch": 2, "seq_len": 24}, 9, 0, "cpu")
-    leaves = weights.leaves(params)
+    leaves = fam.leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     loss, _ = m.loss(params, batch)
     got = torch.autograd.grad(loss, leaves)
-    ref_loss = ref_model.loss(params, batch["tokens"], batch["labels"], dm, remat=True)
+    ref_loss = fam.loss(params, batch["tokens"], batch["labels"], dm, remat=True)
     want = torch.autograd.grad(ref_loss, leaves)
     torch.testing.assert_close(loss, ref_loss, **TOL)
     for g, w in zip(got, want):

@@ -8,8 +8,7 @@ import re
 import pytest
 
 from portbench.tests import tiny  # noqa: F401  (puts src on the path)
-from portbench.lib import cell
-from portbench.lib.dims import dims
+from portbench.lib import cell, family
 
 BENCH = cell.load_benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -34,6 +33,7 @@ def test_cell_found_by_name(entry):
     assert cell.end_to_end(BENCH, entry["name"]) and cell.per_layer(BENCH, entry["name"])
     assert "setup_s" in {m["name"] for m in cell.end_to_end(BENCH, entry["name"])}
     assert set(wl["check"]["limits"]) and all(v > 0 for v in wl["check"]["limits"].values())
+    assert wl["cpu_test"] and set(wl["cpu_test"]) <= set(wl) - {"cpu_test"}  # sizes it has
 
 
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda e: e["name"])
@@ -44,7 +44,8 @@ def test_configuration_found_by_name(entry):
     assert all(k in cfg for k in entry["reduced"])
     assert cfg["compute_dtype"] == "float32" and cfg["tf32"] is False
     assert all(k in cfg for k in cfg["departures"] if k not in ("blocks", "source"))
-    dims(cfg)  # the run keys ask for what the harness runs
+    assert (family.DIR / f"{cfg['family']}.py").exists()
+    family.of(cfg).dims(cfg)  # the run keys ask for what the harness runs
     assert any(w["config"] == entry["name"] for w in BENCH["workloads"])
 
 

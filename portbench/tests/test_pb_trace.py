@@ -3,8 +3,7 @@ synthetic chrome trace."""
 from __future__ import annotations
 
 from portbench.tests import tiny  # noqa: F401
-from portbench.lib import cell, cost, trace
-from portbench.lib.dims import dims
+from portbench.lib import cell, cost, family, trace
 
 
 def _x(name, cat, ts, dur):
@@ -52,6 +51,7 @@ def test_a_device_only_trace_takes_its_window_from_the_host_clock():
 
 def test_kernel_roofline_reads_only_a_matching_count():
     bench = cell.load_benchmark()
+    dims = family.load("llama").dims
     dm = dims(cell.config(bench, "yi-9b"))
     read = cell.reader("flash_fwd_roofline.prefill")
     rec = {"dims": dm, "trace": trace.reduce(EVENTS, 1.0),
@@ -66,6 +66,35 @@ def test_kernel_roofline_reads_only_a_matching_count():
            "trace_units": [{"kind": "prefill", "rows": 1, "length": 64}]}
     want = 2 * cost.roofline_s(*cost.flash_fwd(1, 64, 64, 32, 4, 128)) / 30e-6 * 100
     assert abs(read(rec) - want) < 1e-9 * want
+
+
+def _decode_trace(n_attn: int, n_merge: int):
+    """A device-only trace of ``n_attn`` flash-decode launches of 300 us
+    and ``n_merge`` merges of 20 us, beside a GEMM."""
+    ev = [_x("void decode_attn_kernel<80, 1>(float const*)", "kernel", 1000 + 400 * i, 300)
+          for i in range(n_attn)]
+    ev += [_x("void decode_merge_kernel(float const*)", "kernel", 1350 + 400 * i, 20)
+           for i in range(n_merge)]
+    return trace.reduce(ev + [_x("sm90_xmma_gemm_f32f32", "kernel", 900, 50)], 1.0)
+
+
+def test_decode_attn_roofline_reads_only_a_matching_count():
+    read = cell.reader("decode_attn_roofline.decode")
+    dm = family.load("llama").dims(dict(cell.config(cell.load_benchmark(), "stablelm-3b"),
+                                        num_hidden_layers=2))
+    units = [{"kind": "decode", "rows": 16, "position": 2500},
+             {"kind": "decode", "rows": 16, "position": 2501},
+             {"kind": "prefill", "rows": 16, "length": 1920}]
+    rec = {"dims": dm, "trace": _decode_trace(4, 1), "trace_units": units}
+    # 2 decode steps of 2 layers: 4 calls, 4 x 300 us of attention and 20 us
+    # of merge; each call's ~0.82 GB at 3.35 TB/s is ~245 us
+    want = 100.0 * sum(cost.flash_decode(16, p, 32, 32, 80)[1] / cost.HBM_BW
+                       for p in (2500, 2500, 2501, 2501)) / 1220e-6
+    assert abs(read(rec) - want) < 1e-9 * want and 80 < want < 81
+    assert read(dict(rec, trace=_decode_trace(3, 0))) is None  # 3 launches where 4 calls
+    assert read(dict(rec, trace=_decode_trace(5, 0))) is None
+    assert read(dict(rec, trace_units=units[2:])) is None      # no decode step traced
+    assert read(dict(rec, trace=None)) is None
 
 
 def test_idle_share_is_the_unbusy_percent():

@@ -17,22 +17,20 @@ from portbench.lib import cell  # noqa: E402
 
 def config(**over) -> dict:
     """A GQA decoder of the Llama form at a size the CPU runs in seconds."""
-    cfg = {"name": "tiny", "source": "test", "hidden_size": 64, "intermediate_size": 128,
-           "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2,
-           "vocab_size": 512, "max_position_embeddings": 256, "rms_norm_eps": 1e-5,
-           "rope_theta": 10000.0, "compute_dtype": "float32", "tf32": False}
+    cfg = {"name": "tiny", "source": "test", "family": "llama", "hidden_size": 64,
+           "intermediate_size": 128, "num_hidden_layers": 2, "num_attention_heads": 4,
+           "num_key_value_heads": 2, "vocab_size": 512, "max_position_embeddings": 256,
+           "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "compute_dtype": "float32",
+           "tf32": False}
     cfg.update(over)
     return cfg
 
 
 def workload(name: str, **over) -> dict:
-    """A committed cell's traffic and limits at a small size."""
-    small = {"yi-9b.decode": dict(batch=4, prompt_lengths=[16], output_tokens=40,
-                                  cache_positions=64, trace_boundaries=2),
-             "yi-9b.prefill": dict(batch=2, prompt_lengths=[8, 16, 24], output_tokens=4,
-                                   cache_positions=64),
-             "stablelm-3b.train": dict(batch=2, seq_len=32)}[name]
-    wl = dict(cell.workload(name), **small)
+    """A committed cell's traffic and limits at a small size: its workload
+    file with the sizes of its ``cpu_test`` object in place."""
+    wl = cell.workload(name)
+    wl.update(wl["cpu_test"])
     wl.update(over)
     return wl
 
