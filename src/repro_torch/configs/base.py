@@ -7,8 +7,13 @@ port's model zoo (``repro_torch.models.model_zoo``) consumes this config to
 build params + apply functions.
 
 This is the port's own copy of the JAX package's ``configs/base.py`` (pure
-data, no framework import); the two stay identical so both packages build
-the same architectures, ``reduced()`` included.
+data, no framework import).  Both build the same ten architectures,
+``reduced()`` included.  The port adds four opt-in fields that the JAX copy
+lacks: ``ArchConfig.rope``, ``MoEConfig.dropless``, ``MoEConfig.renormalize``
+and ``SSMConfig.inner_norms``.  At their defaults they leave every
+architecture as the JAX package builds it; a model of another form (Jamba's
+RoPE-free attention, dropless top-k routing without renormalised gates, and
+RMSNorms on the Mamba mixer's dt, B and C) sets them.
 """
 from __future__ import annotations
 
@@ -59,6 +64,12 @@ class MoEConfig:
     # "ep": shard expert dim over the model axis (experts % model_axis == 0)
     # "tp": shard each expert's d_ff over the model axis (few experts)
     sharding: str = "ep"
+    # port only: every routed (token, expert) pair computed, none dropped
+    # (no capacity); False is the GShard capacity path
+    dropless: bool = False
+    # port only: the top-k gates divided by their sum (False: the softmax
+    # probabilities themselves, as Mixtral and Jamba use them)
+    renormalize: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +80,9 @@ class SSMConfig:
     conv_width: int = 4
     expand: int = 2
     dt_rank: int = 0  # 0 => ceil(d_model/16)
+    # port only: RMSNorms on dt (width dt_rank), B and C (width state_dim)
+    # after x_proj, as Jamba's mixer has them
+    inner_norms: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +127,9 @@ class ArchConfig:
     # True if attention is full/quadratic everywhere (=> skip long_500k).
     subquadratic: bool = False
     source: str = ""
+    # port only: rotary embedding on attention's q and k (False: attention
+    # has no positional encoding, as in Jamba)
+    rope: bool = True
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -176,6 +193,7 @@ class ArchConfig:
                     + e  # D
                     + e * d  # out_proj
                     + d  # norm
+                    + (dtr + 2 * self.ssm.state_dim if self.ssm.inner_norms else 0)
                 )
                 per_block_total[b] = per_block_active[b] = n
             elif b in ("slstm", "mlstm"):

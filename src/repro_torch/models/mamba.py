@@ -6,6 +6,11 @@ state h (B, E, N) in fp32; the per-step terms exp(dt*A) and dt*B*x are
 computed a chunk of time steps at a time, so each step of the loop is one
 fused multiply-add.  Decode is a single recurrence step carrying
 (ssm_state, conv_state).  E = expand * d_model is the inner width.
+
+With ``SSMConfig.inner_norms`` (the port's own; Jamba's mixer) dt, B and C
+each pass an RMSNorm of its own width (dt_rank, state_dim, state_dim) after
+``x_proj`` and before ``dt_proj`` and the scan, in both paths; their scales
+are the leaves ``dt_norm``, ``B_norm`` and ``C_norm``.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ def mamba_init(gen: torch.Generator, d_model: int, cfg: SSMConfig, *,
     N = cfg.state_dim
     R = _dt_rank(d_model, cfg)
     kw = dict(dtype=dtype, device=device)
-    return {
+    p = {
         "in_proj": layers.dense_init(gen, (d_model, 2 * E), ("embed", "inner"), **kw),
         "conv_w": layers.dense_init(gen, (cfg.conv_width, E), ("conv", "inner"),
                                     fan_in=cfg.conv_width, **kw),
@@ -45,6 +50,10 @@ def mamba_init(gen: torch.Generator, d_model: int, cfg: SSMConfig, *,
         "D": layers.ones_init(gen, (E,), ("inner",), device=device),
         "out_proj": layers.dense_init(gen, (E, d_model), ("inner", "embed"), fan_in=E, **kw),
     }
+    if cfg.inner_norms:
+        for name, width in (("dt_norm", R), ("B_norm", N), ("C_norm", N)):
+            p[name] = {"scale": layers.ones_init(gen, (width,), (None,), **kw)}
+    return p
 
 
 def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -72,7 +81,13 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (out + b).to(x.dtype)
 
 
-def _ssm_params(params, xc, d_model, cfg, rules: AxisRules):
+def _inner_norms(params, dt_x, Bp, Cp, eps: float):
+    """dt_x, B and C through their RMSNorms (``SSMConfig.inner_norms``)."""
+    return tuple(layers.rmsnorm_apply(params[name], a, eps=eps)
+                 for name, a in (("dt_norm", dt_x), ("B_norm", Bp), ("C_norm", Cp)))
+
+
+def _ssm_params(params, xc, d_model, cfg, rules: AxisRules, eps: float):
     """xc (B, [S,] E) -> dt (..., E), Bp (..., N), Cp (..., N), all fp32."""
     N = cfg.state_dim
     R = _dt_rank(d_model, cfg)
@@ -82,6 +97,8 @@ def _ssm_params(params, xc, d_model, cfg, rules: AxisRules):
     dbc = rules.constrain(xc @ params["x_proj"], "batch", *("seq",) * (xc.ndim - 2), None,
                           grad=True)
     dt_x, Bp, Cp = torch.split(dbc, [R, N, N], dim=-1)
+    if cfg.inner_norms:
+        dt_x, Bp, Cp = _inner_norms(params, dt_x, Bp, Cp, eps)
     dt = F.softplus(dt_x @ params["dt_proj"] + params["dt_bias"])
     return dt.float(), Bp.float(), Cp.float()
 
@@ -109,8 +126,10 @@ def _scan(dt, Bp, Cp, xcf, A):
 
 def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
                 rules: AxisRules = layers._NULL_RULES, *,
-                ssm_state=None, conv_state=None, return_state: bool = False):
-    """x (B,S,D).  With states given (decode), S must be 1.
+                ssm_state=None, conv_state=None, return_state: bool = False,
+                norm_eps: float = 1e-6):
+    """x (B,S,D).  With states given (decode), S must be 1.  ``norm_eps``
+    is the inner RMSNorms' (``cfg.inner_norms``).
 
     Returns y (B,S,D) and, if ``return_state``, the new (ssm_state,
     conv_state): the last state of the scan and the last W-1 pre-conv
@@ -127,7 +146,7 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
     if ssm_state is None:
         # --- full-sequence path -------------------------------------------
         xc = F.silu(_conv_causal(x1, params["conv_w"], params["conv_b"], rules))
-        dt, Bp, Cp = _ssm_params(params, xc, D, cfg, rules)
+        dt, Bp, Cp = _ssm_params(params, xc, D, cfg, rules, norm_eps)
         xcf = xc.float()
         # the scan runs on each rank's batch rows and inner channels as plain
         # tensors: DTensor would lay a step out by its sizes, which depend on
@@ -151,7 +170,7 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
         xc = torch.einsum("bwe,we->be", window.float(),
                           params["conv_w"].float()) + params["conv_b"]
         xc = F.silu(xc)                                           # (B,E)
-        dt, Bp, Cp = _ssm_params(params, xc, D, cfg, rules)
+        dt, Bp, Cp = _ssm_params(params, xc, D, cfg, rules, norm_eps)
         dA = torch.exp(dt[..., None] * A)
         dBx = dt[..., None] * Bp[:, None, :] * xc.float()[..., None]
         new_ssm = ssm_state * dA + dBx

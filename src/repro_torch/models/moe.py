@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN: GShard/Switch-style dispatch and combine.
+"""Mixture-of-Experts FFN: GShard/Switch-style dispatch and combine, or
+dropless top-k routing.
 
 Top-k routing with a capacity factor; tokens past an expert's capacity are
 dropped (their combine weight is zero), and the dense-residual path
@@ -7,8 +8,19 @@ auxiliary loss is returned.  Each step reproduces the JAX package's
 ``moe_apply``: the same groups, ties broken toward the lower expert index
 as ``lax.top_k`` breaks them, the same capacity positions.  On one card
 the experts run as one batched matmul over the expert axis.
+
+With ``MoEConfig.dropless`` (the port's own; Jamba, Mixtral) no token is
+dropped: every routed (token, expert) pair is computed once with its
+expert's weights (``_dropless``).
+
+``record_routes()`` opens a routing record: while it is open, each call
+appends its (tokens, K) tensor of chosen experts, in call order.  It keeps
+a reference to the tensor the routing made (no copy, no launch); closed,
+as it is by default, it costs one read of a module variable.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +51,22 @@ def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *, gated: bool,
     return p
 
 
+# the open routing record (a list), or None
+_routes: list | None = None
+
+
+@contextlib.contextmanager
+def record_routes():
+    """A routing record: the list it yields gets each MoE call's (tokens, K)
+    chosen experts (int64, ``top_k``'s order), in call order, while open."""
+    global _routes
+    outer, _routes = _routes, []
+    try:
+        yield _routes
+    finally:
+        _routes = outer
+
+
 def _top_k(probs: torch.Tensor, k: int):
     """The k largest of the last axis, largest first, equal values in
     ascending index order (``lax.top_k``'s order; ``torch.topk`` promises
@@ -54,7 +82,10 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
 
     Tokens are regrouped to (n_groups, g) before dispatch, g being
     ``group_size`` halved until it divides the token count, and each group
-    gives each expert C = max(1, int(cf*g*k/E)) slots."""
+    gives each expert C = max(1, int(cf*g*k/E)) slots.  With
+    ``cfg.dropless`` nothing is grouped or dropped (``_dropless``)."""
+    if cfg.dropless:
+        return _dropless(params, x, cfg, rules)
     B0, S0, D = x.shape
     tokens = B0 * S0
     g = group_size
@@ -75,8 +106,11 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
     # hand their gradients back laid out by batch, so the ops between take
     # no layout that DTensor picks by how the groups divide over the mesh
     gate_w, gate_idx = _top_k(rules.constrain(probs, "batch", None, None, grad=True), K)
-    gate_w = rules.constrain(gate_w / torch.clamp(gate_w.sum(dim=-1, keepdim=True), min=1e-9),
-                             "batch", None, None, grad=True)                # (B,S,K)
+    if _routes is not None:
+        _routes.append(gate_idx.reshape(-1, K))
+    if cfg.renormalize:
+        gate_w = gate_w / torch.clamp(gate_w.sum(dim=-1, keepdim=True), min=1e-9)
+    gate_w = rules.constrain(gate_w, "batch", None, None, grad=True)        # (B,S,K)
 
     # Position of each token in its expert's buffer, per routing slot: an
     # exclusive cumsum over the (S*K) axis, s-major and k-minor.
@@ -122,3 +156,59 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
     frac_probs = rules.constrain(probs, "batch", None, None, grad=True).mean(dim=(0, 1))
     aux = E * (frac_tokens * frac_probs).sum()
     return rules.constrain(y.reshape(B0, S0, D), "batch", "seq", "embed_act"), aux
+
+
+def _count(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """How many of ``idx`` (1-D) equal each of 0..n-1, on its device with no
+    host synchronisation (``bincount`` reads the largest index back)."""
+    return torch.zeros(n, dtype=torch.long, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
+def _dropless(params: dict, x: torch.Tensor, cfg: MoEConfig,
+              rules: AxisRules = layers._NULL_RULES):
+    """Dropless top-k: each token goes to the K experts of largest router
+    probability (ties to the lower index), its gates those probabilities,
+    divided by their sum where ``cfg.renormalize``; no capacity, no token
+    dropped.  Returns (y (B,S,D), the aux loss over the top-1 slot).
+
+    One token a sequence (decode) makes no host synchronisation: each
+    expert takes every token, as in a buffer of capacity T with token t in
+    slot t (so nothing can overflow), and the E products run as one batched
+    product, E/K times the least FLOPs but the same weight bytes, which
+    bound it at a decode batch; a token's output sums its K experts' rows
+    by their gates, the others' by 0.  Longer inputs (prefill) read each
+    expert's row count once and run one product an expert over the rows
+    sorted by expert, the least FLOPs."""
+    B, S, D = x.shape
+    T, E, K = B * S, cfg.num_experts, cfg.top_k
+    xt = x.reshape(T, D)
+    probs = torch.softmax(xt.float() @ params["router"].float(), dim=-1)      # (T,E)
+    gate_w, gate_idx = _top_k(probs, K)                                        # (T,K)
+    if _routes is not None:
+        _routes.append(gate_idx)
+    if cfg.renormalize:
+        gate_w = gate_w / torch.clamp(gate_w.sum(dim=-1, keepdim=True), min=1e-9)
+    gate_w = gate_w.to(x.dtype)
+    if S == 1:
+        combine = torch.zeros((T, E), dtype=x.dtype, device=x.device).scatter_(
+            1, gate_idx, gate_w)                                               # (T,E)
+        # the experts' weights (E, D, F) and (E, F, D) batch mlp_apply's products
+        out = layers.mlp_apply(params, xt.expand(E, T, D))                     # (E,T,D)
+        y = torch.einsum("te,etd->td", combine, out)
+    else:
+        flat = gate_idx.reshape(-1)                                            # (T*K,)
+        order = torch.sort(flat, stable=True).indices
+        counts = _count(flat, E).tolist()                      # one sync a layer
+        rows = xt[order // K]
+        mlp = [k for k in ("w_in", "w_gate", "w_out") if k in params]
+        outs = [layers.mlp_apply({k: params[k][e] for k in mlp}, part)
+                for e, part in enumerate(rows.split(counts))]
+        routed = torch.empty((T * K, D), dtype=x.dtype, device=x.device)
+        routed[order] = torch.cat(outs) * gate_w.reshape(-1)[order, None]
+        y = routed.view(T, K, D).sum(dim=1)
+    if cfg.dense_residual:
+        y = y + layers.mlp_apply(params["dense"], xt, rules)
+    frac_tokens = _count(gate_idx[:, 0], E).float() / T
+    aux = E * (frac_tokens * probs.mean(dim=0)).sum()
+    return y.reshape(B, S, D), aux

@@ -241,8 +241,9 @@ def _attn_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, *, positions,
     q = _project(x, p["wq"], rules, "heads")
     k = _project(x, p["wk"], rules, "kv_heads")
     v = _project(x, p["wv"], rules, "kv_heads")
-    q = attn_lib.apply_rope(q, positions, cfg.rope_theta)
-    k = attn_lib.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope:
+        q = attn_lib.apply_rope(q, positions, cfg.rope_theta)
+        k = attn_lib.apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is None:
@@ -299,14 +300,17 @@ def _block_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, pos: int, *,
         h, new_cache = _attn_apply(p["attn"], xn, cfg, rcfg, positions=positions,
                                    cache=cache, t=t, build_cache=build_cache)
     elif btype == "mamba":
-        if want_state:
-            h, ssm, conv = mamba_lib.mamba_apply(
-                p["mamba"], xn, cfg.ssm, rcfg.rules,
-                ssm_state=cache["ssm"] if decode else None,
-                conv_state=cache["conv"] if decode else None, return_state=True)
-            new_cache = {"ssm": ssm, "conv": conv}
-        else:
-            h = mamba_lib.mamba_apply(p["mamba"], xn, cfg.ssm, rcfg.rules)
+        with span("mamba.mixer"):
+            if want_state:
+                h, ssm, conv = mamba_lib.mamba_apply(
+                    p["mamba"], xn, cfg.ssm, rcfg.rules,
+                    ssm_state=cache["ssm"] if decode else None,
+                    conv_state=cache["conv"] if decode else None, return_state=True,
+                    norm_eps=cfg.norm_eps)
+                new_cache = {"ssm": ssm, "conv": conv}
+            else:
+                h = mamba_lib.mamba_apply(p["mamba"], xn, cfg.ssm, rcfg.rules,
+                                          norm_eps=cfg.norm_eps)
     elif btype == "slstm":
         if want_state:
             h, new_cache = xlstm_lib.slstm_apply(
@@ -327,9 +331,10 @@ def _block_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, pos: int, *,
     if _has_ffn(cfg, pos):
         xn2 = layers.rmsnorm_apply(p["norm2"], x, eps=cfg.norm_eps)
         if _is_moe(cfg, pos):
-            y, aux = moe_lib.moe_apply(p["ffn"], xn2, cfg.moe, rcfg.rules,
-                                       capacity_factor=rcfg.capacity_factor,
-                                       group_size=rcfg.moe_group_size)
+            with span("moe.ffn"):
+                y, aux = moe_lib.moe_apply(p["ffn"], xn2, cfg.moe, rcfg.rules,
+                                           capacity_factor=rcfg.capacity_factor,
+                                           group_size=rcfg.moe_group_size)
         else:
             y = layers.mlp_apply(p["ffn"], xn2, rcfg.rules)
         x = x + y

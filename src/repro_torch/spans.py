@@ -15,8 +15,9 @@ device activity alone it records nothing and costs under a microsecond,
 where an idle ``record_function`` costs ~10 us of host time and would
 slow the very stretch whose idle time that profiler measures.
 
-The model (``model.prefill``, ``model.decode_step``, ``attn.decode``) and
-the optimizer (``optim.apply_updates``) open these spans.
+The model (``model.prefill``, ``model.decode_step``, ``attn.decode``,
+``moe.ffn`` around each MoE FFN, ``mamba.mixer`` around each Mamba mixer)
+and the optimizer (``optim.apply_updates``) open these spans.
 """
 from __future__ import annotations
 
