@@ -14,12 +14,18 @@ On one NVIDIA card (written for an H100) it
    against its plain version at yi-9b.decode's shape and on seeded draws
    (batch 1-32, head dims 16-160, groups 1-16, t from 0 to 4,095 and at the
    split edges; outputs within 2e-5, caches bitwise) and times it against
-   its bound, its plain version and SDPA over the filled slice;
+   its bound, its plain version and SDPA over the filled slice; holds the
+   dense decode step's CUDA graphs against the eager step (yi-9b at full
+   width and depth, batch 32 and 4, 64 steps each: tokens, logits and
+   caches bitwise, the captures and replays, no synchronisation, the
+   graphs' memory freed with their cache) and the kernel's device-held t
+   against t by value;
 3. serves 8 requests on yi-9b at full width and depth (fp32, prompt 512,
    16 new tokens), then 4 requests on stablelm-3b at full width and depth
    (head dim 80, prompt 256, 8 new tokens), and checks for each that every
    kernel was launched as often as the model needs (decode_attention once
-   a layer a decode step: 48 a yi-9b step) and that every logit is
+   a layer in each batch's first decode step and once more in its graphs'
+   capture, none in the steps that replay them) and that every logit is
    finite; then the recurrent and MoE blocks: reduced jamba, xlstm, grok
    and arctic on the card against the CPU, xlstm-350m served at full width
    and depth (4 slots, prompt 512, 16 new tokens), and grok-1-314b (2
@@ -121,7 +127,8 @@ On one NVIDIA card (written for an H100) it
    line, ``{"chaos": ...}``, ``{"recurrent_moe": ...}``,
    ``{"train": ...}``, ``{"baselines": ...}``, ``{"real_trace": ...}``,
    ``{"fleet": ...}``, ``{"sharding": ...}``, ``{"roofline": ...}`` and
-   ``{"decode_attention": ...}`` lines, a ``{"kernels": [...]}`` line and,
+   ``{"decode_attention": ...}`` and ``{"decode_graph": ...}`` lines, a
+   ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero.  Without CUDA, or without this
@@ -324,6 +331,7 @@ def main() -> int:
 
     property_sweeps(torch, dev, failures)
     decode = decode_attention_phase(torch, dev, card)
+    graphs = decode_graph_phase(torch, dev, card)
 
     # The main path at a small size: reduced yi-9b, the same weights on the
     # card and on the CPU (plain versions) give the same logits and tokens.
@@ -353,11 +361,14 @@ def main() -> int:
     cfg = get_arch("yi-9b")
     n_req, slots, prompt_len, gen_len = 8, 4, 512, 16
     n_batches = -(-n_req // slots)
-    n_forwards = n_batches * gen_len  # one prefill + gen_len - 1 decode steps each
     n_steps = n_batches * (gen_len - 1)  # decode steps
+    # each batch's first decode step runs eagerly and then captures its
+    # cache's graphs (each counting a step's launches); the rest replay
+    # them, which launches no wrapper
+    n_forwards = n_batches * 3  # a prefill, the eager step and the capture
     want_launches = launch_dict(flash_attention=n_batches * cfg.num_layers,
                                 rmsnorm=n_forwards * (2 * cfg.num_layers + 1),
-                                decode_attention=n_steps * cfg.num_layers)
+                                decode_attention=2 * n_batches * cfg.num_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ops.reset_launch_counts()
@@ -372,8 +383,9 @@ def main() -> int:
           f"{res.prefill_s:.3f} s, decode {res.wall_s - res.prefill_s:.3f} s; "
           f"with init {total_s:.1f} s; peak memory {peak_gb:.1f} GB")
     print(f"launches on the main path: {launches} (expected {want_launches}); "
-          f"decode_attention a decode step: {launches['decode_attention'] / n_steps:g} "
-          f"(expected {cfg.num_layers})")
+          f"decode_attention a batch's eager step and capture: "
+          f"{launches['decode_attention'] / n_batches:g} (expected {2 * cfg.num_layers}; "
+          f"its other {n_steps // n_batches - 1} steps replay graphs)")
     outputs_ok = (len(res.outputs) == n_req
                   and all(o.shape == (gen_len,) and (o >= 0).all()
                           and (o < cfg.vocab_size).all() for o in res.outputs))
@@ -386,8 +398,9 @@ def main() -> int:
     # stablelm-3b at full width and depth (head dim 80): one batch.
     B, prompt_len, _, _, _ = SL_ATTN
     n_req, slots, gen_len, layers = B, B, 8, get_arch("stablelm-3b").num_layers
-    want_sl = launch_dict(flash_attention=layers, rmsnorm=gen_len * (2 * layers + 1),
-                          decode_attention=(gen_len - 1) * layers)
+    # a prefill, the eager step and the capture; the other steps replay
+    want_sl = launch_dict(flash_attention=layers, rmsnorm=3 * (2 * layers + 1),
+                          decode_attention=2 * layers)
     ops.reset_launch_counts()
     res = serve("stablelm-3b", reduced=False, n_requests=n_req, batch_slots=slots,
                 prompt_len=prompt_len, gen_len=gen_len, device="cuda")
@@ -548,6 +561,7 @@ def main() -> int:
     print(json.dumps({"sharding": sharding}))
     print(json.dumps({"roofline": roofline}))
     print(json.dumps({"decode_attention": decode}))
+    print(json.dumps({"decode_graph": graphs}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -769,6 +783,180 @@ def decode_attention_phase(torch, dev, card):
     phase_s = time.perf_counter() - t_phase
     print(f"decode_attention: phase {phase_s:.1f} s")
     return dict(row=row, times=times, worst=worst, phase_s=phase_s)
+
+
+# the graphed decode step against the eager one: (batch, cache positions,
+# first t, steps); batch 32 is yi-9b.decode's (one split), batch 4 the
+# prefill cell's (split and merge; its plan grows from 7 to 8 splits at
+# t 255, so the cache's graphs are captured twice)
+GRAPH_CASES = ((32, 512, 200, 64), (4, 512, 230, 64))
+
+
+def decode_graph_phase(torch, dev, card):
+    """The dense decode step's CUDA graphs (``models/decode_graph.py``) on
+    the card.
+
+    (a) The flash-decode kernel with t from a device tensor: bitwise equal
+    to t by value (output and caches), and one launch captured in a graph
+    at one t and replayed after writing another t equals a direct call at
+    that t.  (b) yi-9b at full width and depth, fp32: ``Model.decode_step``
+    (graphs) against ``transformer.forward`` (the eager step) on two
+    copies of one cache filled with noise, each fed its own greedy tokens,
+    for each of ``GRAPH_CASES``, all under
+    ``torch.cuda.set_sync_debug_mode("error")``: tokens and logits bitwise
+    equal every step, the model's ``captures`` and ``replays`` as the split
+    plan implies, and ``torch.cuda.memory_allocated`` back to its value
+    before the caches once they are dropped (the graphs and their pool
+    freed with the cache; cuBLAS's workspaces cleared before each
+    reading).  Times 32 steps each way after the check at
+    batch 32.  Returns the summary; any failure raises."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.decode_attention import plan_splits
+    from repro_torch.models import transformer
+    from repro_torch.models.model_zoo import Model
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(28)
+    failures, out = [], {"kernel": [], "steps": []}
+    sms = _build.sm_count(dev.index or 0)
+
+    # (a) the kernel alone
+    for B, S, H, KV, hd, t, t2 in ((32, 4096, 32, 4, 128, 2505, 2600),
+                                   (4, 4096, 32, 4, 128, 1920, 1990),
+                                   (16, 4096, 32, 32, 80, 3000, 3100)):
+        q, kn, vn = (torch.randn(shape, generator=gen, device=dev)
+                     for shape in ((B, 1, H, hd), (B, 1, KV, hd), (B, 1, KV, hd)))
+        kc = torch.randn((B, S, KV, hd), generator=gen, device=dev)
+        vc = torch.randn((B, S, KV, hd), generator=gen, device=dev)
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        o1, _, _ = ops.decode_attention(q, kn, vn, k1, v1, t)
+        t_dev = torch.tensor([t], device=dev)
+        o2, _, _ = ops.decode_attention(q, kn, vn, k2, v2, t, t_device=t_dev)
+        same = bool(torch.equal(o1, o2) and torch.equal(k1, k2) and torch.equal(v1, v2))
+        # captured at t, replayed at t2 (the same split plan)
+        k3, v3, k4, v4 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        g = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            g.capture_begin()
+            o3, _, _ = ops.decode_attention(q, kn, vn, k3, v3, t, t_device=t_dev)
+            g.capture_end()
+        t_dev.fill_(t2)
+        g.replay()
+        o4, _, _ = ops.decode_attention(q, kn, vn, k4, v4, t2)
+        replayed = bool(torch.equal(o3, o4) and torch.equal(k3, k4) and torch.equal(v3, v4))
+        plans = (plan_splits(t, B, KV, sms), plan_splits(t2, B, KV, sms))
+        ok = same and replayed and plans[0] == plans[1]
+        print(f"  decode_attention t from the device ({B}, {S}, {H}, {KV}, {hd}) t={t}: "
+              f"bitwise equal to t by value {same}; captured at t={t}, replayed at {t2} "
+              f"(splits {plans}): bitwise equal to a call at {t2} {replayed} "
+              f"{'ok' if ok else 'FAIL'}")
+        out["kernel"].append(dict(shape=[B, S, H, KV, hd], t=t, t2=t2, same=same,
+                                  replayed=replayed))
+        if not ok:
+            failures.append(f"t from the device at {(B, S, H, KV, hd, t)}")
+        del g, q, kn, vn, kc, vc, k1, v1, k2, v2, k3, v3, k4, v4, o1, o2, o3, o4
+
+    # (b) the step at full width and depth
+    cfg = get_arch("yi-9b")
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    KV, hd, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+
+    def run(B, S, t0, steps):
+        cache_g = [{kv: torch.randn((B, S, KV, hd), generator=gen, device=dev)
+                    for kv in ("k", "v")} for _ in range(L)]
+        cache_e = [{kv: c[kv].clone() for kv in c} for c in cache_g]
+        tok_g = tok_e = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev)
+        differ = torch.zeros((), dtype=torch.long, device=dev)
+        tok_differ = torch.zeros((), dtype=torch.long, device=dev)
+        c0, r0 = model.captures, model.replays
+        sync_error = None
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for i in range(steps):
+                    lg, cache_g = model.decode_step(params, {"tokens": tok_g[:, None]}, cache_g,
+                                                    t0 + i)
+                    le, _, cache_e = transformer.forward(params, {"tokens": tok_e[:, None]},
+                                                         cfg, model.rcfg, cache=cache_e,
+                                                         t=t0 + i)
+                    le = le[:, 0]
+                    differ += (lg != le).sum()
+                    tok_g, tok_e = lg.argmax(-1), le.argmax(-1)
+                    tok_differ += (tok_g != tok_e).sum()
+            except RuntimeError as e:
+                sync_error = str(e).splitlines()[0]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            caches_equal = all(torch.equal(a[kv], b[kv])
+                               for a, b in zip(cache_g, cache_e) for kv in ("k", "v"))
+        plans = sorted({plan_splits(t0 + i, B, KV, sms) for i in range(steps)})
+        want = (len(plans), steps - len(plans))
+        got = (model.captures - c0, model.replays - r0)
+        row = dict(batch=B, cache_positions=S, t0=t0, steps=steps, splits=plans,
+                   logits_differ=int(differ), tokens_differ=int(tok_differ),
+                   caches_equal=caches_equal, sync_error=sync_error,
+                   captures_replays=list(got), want_captures_replays=list(want))
+        timing = None
+        if B == 32 and sync_error is None:
+            timing = {}
+            with torch.inference_mode():
+                for name, fn in (
+                        ("graphed", lambda t: model.decode_step(
+                            params, {"tokens": tok_g[:, None]}, cache_g, t)),
+                        ("eager", lambda t: transformer.forward(
+                            params, {"tokens": tok_e[:, None]}, cfg, model.rcfg,
+                            cache=cache_e, t=t))):
+                    t1 = t0 + steps
+                    torch.cuda.synchronize()
+                    h0 = time.perf_counter()
+                    for i in range(32):
+                        fn(t1 + i)
+                    host = time.perf_counter() - h0
+                    torch.cuda.synchronize()
+                    timing[name] = dict(host_ms=host / 32 * 1e3,
+                                        wall_ms=(time.perf_counter() - h0) / 32 * 1e3)
+        row["ms_a_step"] = timing
+        return row
+
+    for B, S, t0, steps in GRAPH_CASES:
+        # cuBLAS's workspace of each (handle, stream), which the eager step
+        # makes and keeps, is left out of both readings
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        before = torch.cuda.memory_allocated(dev)
+        row = run(B, S, t0, steps)
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        row["memory_left_bytes"] = torch.cuda.memory_allocated(dev) - before
+        ok = (row["logits_differ"] == 0 and row["tokens_differ"] == 0 and row["caches_equal"]
+              and row["sync_error"] is None
+              and row["captures_replays"] == row["want_captures_replays"]
+              and row["memory_left_bytes"] == 0)
+        print(f"  decode graphs yi-9b B={B} cache {S} t {t0}..{t0 + steps - 1} (splits "
+              f"{row['splits']}): logits differing {row['logits_differ']}, tokens differing "
+              f"{row['tokens_differ']}, caches equal {row['caches_equal']}, synchronisation "
+              f"{row['sync_error'] or 'none'}; captures, replays {row['captures_replays']} "
+              f"(expected {row['want_captures_replays']}); memory left after the cache "
+              f"{row['memory_left_bytes']} B {'ok' if ok else 'FAIL'}")
+        if row["ms_a_step"]:
+            print("  decode graphs yi-9b B=32 ms a step (32 steps): " + ", ".join(
+                f"{k} host {v['host_ms']:.2f} wall {v['wall_ms']:.2f}"
+                for k, v in row["ms_a_step"].items()) + f"; {card}")
+        out["steps"].append(row)
+        if not ok:
+            failures.append(f"decode graphs at B={B}")
+    del params, model
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"decode graphs: phase {out['phase_s']:.1f} s")
+    if failures:
+        raise SystemExit("decode graph checks failed:\n  " + "\n  ".join(failures))
+    return out
 
 
 def cuda_time_ms(torch, fn, sets, iters=50):
@@ -2862,7 +3050,7 @@ def sharding_phase(torch, dev, card):
     at 4 x 512 tokens, then 16 greedy decode steps, once with
     ``decode_attn="sharded"`` (``decode_attention_sharded``: its all-reduces
     over the mesh's ``model`` group) and once ``"local"`` with the plain
-    local version (the sharded step's own plain ops; the flash-decode
+    local version in the eager step (the sharded step's own plain ops; the flash-decode
     kernel is held against it in ``decode_attention_phase``): gated on equal
     tokens, every step's logits within 1e-4 and the caches within 1e-6,
     with exact kernel launch counts; prints decode ms a step both ways.
@@ -2885,6 +3073,7 @@ def sharding_phase(torch, dev, card):
     from repro_torch.launch.elastic import reshard_tree
     from repro_torch.launch.mesh import dp_axes_of, make_test_mesh
     from repro_torch.models import attention as attn_lib
+    from repro_torch.models import transformer
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.transformer import RunConfig
     from repro_torch.parallel.sharding_rules import AxisRules, tree_shardings
@@ -2916,8 +3105,18 @@ def sharding_phase(torch, dev, card):
         attn_lib.decode_attention_sharded = counted
         # the sharded path's partial attention is plain torch ops; it is held
         # against the plain local version, which it equals bitwise (the
-        # flash-decode kernel has its own checks in decode_attention_phase)
+        # flash-decode kernel has its own checks in decode_attention_phase);
+        # the plain version takes t by value, so the local model runs the
+        # eager step (transformer.forward), not the step its graphs replay
         attn_lib.decode_attention_local = ref.decode_attention_ref
+
+        def step(name, model, toks, cache, t):
+            if name == "sharded":
+                return model.decode_step(params, {"tokens": toks[:, None]}, cache, t)
+            lg, _, cache = transformer.forward(params, {"tokens": toks[:, None]}, model.cfg,
+                                               model.rcfg, cache=cache, t=t)
+            return lg[:, 0], cache
+
         ops.reset_launch_counts()
         runs = {}
         try:
@@ -2929,8 +3128,7 @@ def sharding_phase(torch, dev, card):
                     for i in range(G):
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
-                        lg, cache = model.decode_step(params, {"tokens": toks[:, None]},
-                                                      cache, S + i)
+                        lg, cache = step(name, model, toks, cache, S + i)
                         toks = lg.argmax(-1)
                         torch.cuda.synchronize()
                         step_s.append(time.perf_counter() - t0)

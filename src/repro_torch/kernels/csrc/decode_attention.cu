@@ -57,6 +57,12 @@
 //   * Position t: the block that owns it copies k_new/v_new into the
 //     caches and takes them, not the cache rows, into its tile.  No other
 //     block reads row t, so nothing races.
+//   * t from the device: where the caller gives a pointer to t (an int64 on
+//     the card), every block reads t there, one load a block, for the cache
+//     write, its run of positions and the causal limit, and the t passed by
+//     value only bounds the split count on the host.  A launch captured in
+//     a CUDA graph then stays right for every later step that writes the
+//     step's t there (models/decode_graph.py).
 //   * fp32 FMA on the CUDA cores throughout: no tensor core, no TF32.
 //   * Rows of a tile past the block's last position are zero-filled by the
 //     copy itself (no read), so the weighted sum never meets stale data.
@@ -145,14 +151,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
                    const float* __restrict__ v_new, float* k_cache, float* v_cache,
                    float* __restrict__ o,
-                   float* __restrict__ part, int S, int H, int KV, int t,
-                   float scale_log2) {
+                   float* __restrict__ part, int S, int H, int KV, int t_arg,
+                   const long long* __restrict__ t_dev, float scale_log2) {
   using L = Layout<HD, GB>;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                   // GB x HD, q * scale * log2(e); rows >= G zero
   float* p_s = q_s + L::kQFloats;      // per warp: kWarpRows x GB probabilities
   float* ring = p_s + L::kPFloats;     // kStages x (kTile x KS of k, kTile x VS of v)
 
+  const int t = t_dev != nullptr ? (int)*t_dev : t_arg;
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.x;
   const int G = H / KV;
@@ -415,7 +422,7 @@ decode_merge_kernel(const float* __restrict__ part, float* __restrict__ o, int r
 template <int HD, int GB>
 cudaError_t launch(const float* q, const float* k_new, const float* v_new, float* k_cache,
                    float* v_cache, float* o, float* part, int B, int S, int H, int KV, int t,
-                   int n_splits, float scale, cudaStream_t stream) {
+                   const long long* t_dev, int n_splits, float scale, cudaStream_t stream) {
   using L = Layout<HD, GB>;
   auto kernel = decode_attn_kernel<HD, GB>;
   static bool configured[kMaxDevices] = {};
@@ -433,7 +440,7 @@ cudaError_t launch(const float* q, const float* k_new, const float* v_new, float
   }
   const dim3 grid((unsigned)n_splits, (unsigned)KV, (unsigned)B);
   kernel<<<grid, kThreads, L::kBytes, stream>>>(q, k_new, v_new, k_cache, v_cache, o, part, S,
-                                                H, KV, t, scale * kLog2e);
+                                                H, KV, t, t_dev, scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
   const long long total = (long long)B * H * HD;
@@ -447,11 +454,12 @@ cudaError_t launch(const float* q, const float* k_new, const float* v_new, float
 template <int HD>
 cudaError_t dispatch_group(const float* q, const float* k_new, const float* v_new,
                            float* k_cache, float* v_cache, float* o, float* part, int B, int S,
-                           int H, int KV, int t, int n_splits, float scale,
-                           cudaStream_t s) {
+                           int H, int KV, int t, const long long* t_dev, int n_splits,
+                           float scale, cudaStream_t s) {
   const int G = H / KV;
 #define DECODE_LAUNCH(GB) \
-  launch<HD, GB>(q, k_new, v_new, k_cache, v_cache, o, part, B, S, H, KV, t, n_splits, scale, s)
+  launch<HD, GB>(q, k_new, v_new, k_cache, v_cache, o, part, B, S, H, KV, t, t_dev, n_splits, \
+                 scale, s)
   if (G <= 1) return DECODE_LAUNCH(1);
   if (G <= 2) return DECODE_LAUNCH(2);
   if (G <= 4) return DECODE_LAUNCH(4);
@@ -464,10 +472,12 @@ cudaError_t dispatch_group(const float* q, const float* k_new, const float* v_ne
 
 // One instantiation per head dim a ported config has: 16 (reduced configs),
 // 32, 64 (musicgen-medium), 80 (stablelm-3b), 128 and 160 (pixtral-12b).
+// t_dev: null, or a device int64 holding t, which the kernel then reads in
+// place of t (t still bounds n_splits here).
 extern "C" int decode_attention_fwd(const void* q, const void* k_new, const void* v_new,
                                     void* k_cache, void* v_cache, void* o, void* part, int B,
                                     int S, int H, int KV, int hd, int t, int n_splits,
-                                    float scale, void* stream) {
+                                    float scale, const void* t_dev, void* stream) {
   if (B < 1 || B > 65535 || KV < 1 || KV > 65535 || H % KV != 0 || H / KV > kMaxGroup ||
       t < 0 || t >= S || n_splits < 1 || n_splits > t + 1 ||
       (n_splits > 1 && part == nullptr))
@@ -479,14 +489,15 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_new, const void
   float* vc = static_cast<float*>(v_cache);
   float* of = static_cast<float*>(o);
   float* pf = static_cast<float*>(part);
+  const long long* td = static_cast<const long long*>(t_dev);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return (int)dispatch_group<16>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, n_splits, scale, s);
-    case 32: return (int)dispatch_group<32>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, n_splits, scale, s);
-    case 64: return (int)dispatch_group<64>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, n_splits, scale, s);
-    case 80: return (int)dispatch_group<80>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, n_splits, scale, s);
-    case 128: return (int)dispatch_group<128>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, n_splits, scale, s);
-    case 160: return (int)dispatch_group<160>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, n_splits, scale, s);
+    case 16: return (int)dispatch_group<16>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, td, n_splits, scale, s);
+    case 32: return (int)dispatch_group<32>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, td, n_splits, scale, s);
+    case 64: return (int)dispatch_group<64>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, td, n_splits, scale, s);
+    case 80: return (int)dispatch_group<80>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, td, n_splits, scale, s);
+    case 128: return (int)dispatch_group<128>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, td, n_splits, scale, s);
+    case 160: return (int)dispatch_group<160>(qf, kn, vn, kc, vc, of, pf, B, S, H, KV, t, td, n_splits, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

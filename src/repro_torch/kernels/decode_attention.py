@@ -8,7 +8,8 @@ decode step; the kernel reads only the filled positions, in place, and
 writes the new token's k/v in the same launch.  CUDA C++ for ``sm_90a``,
 built by ``kernels._build`` at first use and called through ctypes on
 PyTorch's current stream; see the source's header for its design and bound.
-``launches`` counts the calls that launched it.
+``launches`` counts the calls that launched it: a launch captured in a CUDA
+graph counts once, at its capture, and not at its replays.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ def _load() -> ctypes.CDLL:
     global _lib
     lib = _build.load("decode_attention")
     lib.decode_attention_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                                         + [ctypes.c_float, ctypes.c_void_p])
+                                         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     lib.decode_attention_fwd.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -84,14 +85,28 @@ def _check(q, k_new, v_new, k_cache, v_cache, t: int) -> None:
         raise ValueError("the caches must start on a 16-byte boundary")
 
 
-def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, t):
+def _check_t_device(t_device, q) -> None:
+    if (type(t_device) is not torch.Tensor or t_device.dtype != torch.int64
+            or t_device.shape != (1,) or t_device.device != q.device):
+        raise ValueError(f"want t_device a one-element int64 tensor on {q.device}")
+
+
+def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, t, *, t_device=None):
     """One decode step of q (B,1,H,hd) against fp32 caches (B,S,KV,hd) by the
     hand-written kernel: k_new/v_new (B,1,KV,hd) are written into the caches
     at position ``t`` in place, and each query head attends to positions
     ``<= t``.  Returns (out (B,1,H,hd), k_cache, v_cache).  Raises on
-    anything it cannot launch."""
+    anything it cannot launch.
+
+    ``t_device``: None, or a one-element int64 tensor on q's device that
+    holds ``t`` when the launch runs; the kernel then reads t there, so a
+    launch captured in a CUDA graph serves every later step that writes its
+    own t there first.  ``t`` itself is still range-checked and picks the
+    split count, which such a graph keeps."""
     global launches
     t = operator.index(t)
+    if t_device is not None:
+        _check_t_device(t_device, q)
     _check(q, k_new, v_new, k_cache, v_cache, t)
     q, k_new, v_new = _aligned(q), _aligned(k_new), _aligned(v_new)
     B, S, KV, hd = k_cache.shape
@@ -107,7 +122,8 @@ def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, t):
         index, lib.decode_attention_fwd, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
         None if part is None else part.data_ptr(),
-        B, S, H, KV, hd, t, n_splits, 1.0 / (hd ** 0.5))
+        B, S, H, KV, hd, t, n_splits, 1.0 / (hd ** 0.5),
+        None if t_device is None else t_device.data_ptr())
     if err:
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode_attention kernel launch failed: {msg} ({err})")

@@ -155,15 +155,18 @@ def rmsnorm(x, scale, *, eps: float = 1e-5, row_block: int = 256):
     return rmsnorm_ref(x, scale, eps=eps)
 
 
-def decode_attention(q, k_new, v_new, k_cache, v_cache, t: int):
+def decode_attention(q, k_new, v_new, k_cache, v_cache, t: int, *, t_device=None):
     """One decode step of q (B,1,H,hd) against caches (B,S,KV,hd): k_new and
     v_new (B,1,KV,hd) written into the caches at position ``t`` in place,
     positions ``<= t`` attended.  Returns (out (B,1,H,hd), k_cache,
     v_cache).  The kernel for a plain CUDA tensor, the plain version for a
-    tensor that does no work on the card; raises on any other."""
+    tensor that does no work on the card; raises on any other.
+    ``t_device`` (a one-element int64 tensor holding ``t``) is where the
+    kernel reads t (``decode_attention_cuda``); the plain version, which
+    launches nothing, takes ``t``."""
     tensors = (q, k_new, v_new, k_cache, v_cache)
     if _route(q, "decode_attention") == "cuda":
-        return _da.decode_attention_cuda(*tensors, t)
+        return _da.decode_attention_cuda(*tensors, t, t_device=t_device)
     for x in tensors:
         if x.device.type == "cuda" and not is_fake(x):
             raise ValueError(f"decode_attention: no kernel for a {type(x).__name__} on "

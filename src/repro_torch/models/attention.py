@@ -75,7 +75,7 @@ reference_attention = flash_attention_ref
 # ---------------------------------------------------------------------------
 
 
-def decode_attention_local(q, k_new, v_new, k_cache, v_cache, t: int):
+def decode_attention_local(q, k_new, v_new, k_cache, v_cache, t: int, *, t_device=None):
     """One decode step of q (B,1,H,hd) against a (B,S,KV,hd) cache.
 
     Writes k_new/v_new (B,1,KV,hd) into the caches IN PLACE at position
@@ -84,9 +84,11 @@ def decode_attention_local(q, k_new, v_new, k_cache, v_cache, t: int):
     ``<= t``.  Returns (out (B,1,H,hd), k_cache, v_cache).
 
     Goes through ``kernels.ops.decode_attention``: the hand-written
-    flash-decode kernel on CUDA, the plain version on the CPU."""
+    flash-decode kernel on CUDA, the plain version on the CPU.  The kernel
+    reads t from ``t_device`` where one is given (a one-element int64
+    tensor holding ``t``: a CUDA graph's replays)."""
     return ops.decode_attention(q.contiguous(), k_new.contiguous(), v_new.contiguous(),
-                                k_cache, v_cache, t)
+                                k_cache, v_cache, t, t_device=t_device)
 
 
 # ---------------------------------------------------------------------------

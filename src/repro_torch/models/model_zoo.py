@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape, get_arch
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import decode_graph, transformer
 from repro_torch.models.transformer import RunConfig
 from repro_torch.spans import span
 
@@ -30,6 +30,18 @@ class Model:
         self.cfg = cfg
         self.rcfg = rcfg or RunConfig()
         self.device = resolve_device(device)
+        self._graphs = (decode_graph.DecodeGraphs(cfg, self.rcfg)
+                        if decode_graph.applies(cfg, self.rcfg, self.device.type) else None)
+
+    @property
+    def captures(self) -> int:
+        """Decode steps that captured CUDA graphs (``models/decode_graph.py``)."""
+        return self._graphs.captures if self._graphs is not None else 0
+
+    @property
+    def replays(self) -> int:
+        """Decode steps that replayed them."""
+        return self._graphs.replays if self._graphs is not None else 0
 
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters from ``gen``, a generator on this model's device."""
@@ -81,8 +93,12 @@ class Model:
     def decode_step(self, params, batch, cache, t: int):
         """One serving step: the token at position ``t``.  Returns the
         logits and the cache: attention k/v updated in place, recurrent
-        states replaced."""
+        states replaced.  A dense decoder on the card with grad off
+        replays the step from CUDA graphs captured on its first step on
+        this cache (``models/decode_graph.py``); other steps run eagerly."""
         with span("model.decode_step"):
+            if self._graphs is not None and not torch.is_grad_enabled():
+                return self._graphs.step(params, batch, cache, t)
             logits, _, new_cache = transformer.forward(
                 params, batch, self.cfg, self.rcfg, cache=cache, t=t)
         return logits[:, 0], new_cache

@@ -236,7 +236,7 @@ def _unproject(o, w, rules: AxisRules):
 
 
 def _attn_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, *, positions,
-                cache=None, t=None, build_cache=False):
+                cache=None, t=None, t_device=None, attn_call=None, build_cache=False):
     rules = rcfg.rules
     q = _project(x, p["wq"], rules, "heads")
     k = _project(x, p["wk"], rules, "kv_heads")
@@ -268,7 +268,11 @@ def _attn_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, *, positions,
                 o, kc, vc = attn_lib.decode_attention_sharded(
                     q, kn, vn, kc, vc, t, mesh=rcfg.mesh, dp_axes=rcfg.dp_axes)
             elif rcfg.decode_attn == "local":
-                o, kc, vc = attn_lib.decode_attention_local(q, kn, vn, kc, vc, t)
+                # the eager step calls it as it always has: t by value alone
+                kw = {} if t_device is None else {"t_device": t_device}
+                call = functools.partial(attn_lib.decode_attention_local, q, kn, vn, kc, vc,
+                                         t, **kw)
+                o, kc, vc = call() if attn_call is None else attn_call(call)
             else:
                 raise ValueError(f"decode_attn must be local or sharded; "
                                  f"got {rcfg.decode_attn!r}")
@@ -278,7 +282,8 @@ def _attn_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, *, positions,
 
 
 def _block_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, pos: int, *,
-                 positions, cache=None, t=None, build_cache=False):
+                 positions, cache=None, t=None, t_device=None, attn_call=None,
+                 build_cache=False):
     """Returns (x, aux_loss, new_cache)."""
     btype = cfg.layer_pattern[pos]
     # in an arch with blocks that loop over the sequence, every block takes
@@ -298,7 +303,8 @@ def _block_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, pos: int, *,
     new_cache = None
     if btype == "attn":
         h, new_cache = _attn_apply(p["attn"], xn, cfg, rcfg, positions=positions,
-                                   cache=cache, t=t, build_cache=build_cache)
+                                   cache=cache, t=t, t_device=t_device, attn_call=attn_call,
+                                   build_cache=build_cache)
     elif btype == "mamba":
         with span("mamba.mixer"):
             if want_state:
@@ -411,10 +417,18 @@ def _embed_inputs(params, batch, cfg: ArchConfig, rcfg: RunConfig):
 
 
 def forward(params, batch, cfg: ArchConfig, rcfg: RunConfig, *,
-            cache=None, t=None, build_cache=False, last_only=False):
+            cache=None, t=None, t_device=None, attn_call=None, build_cache=False,
+            last_only=False):
     """Full forward.  ``cache`` None => prefill/train over (B, S); else a
     one-step decode at position ``t``: attention layers update their k/v
-    in place, recurrent layers return new states.  ``build_cache`` makes
+    in place, recurrent layers return new states.  A decode given
+    ``t_device``, a one-element int64 tensor holding ``t``, takes RoPE's
+    positions from it and hands it to the local decode attention, whose
+    kernel reads t there: what a CUDA graph of the step needs to serve
+    later steps (``models/decode_graph.py``); ``t`` is still checked and
+    plans the kernel's splits.  ``attn_call``, where given, runs each local
+    decode attention call: ``attn_call(call)`` returns ``call()``'s result
+    (the graph capture cuts its graphs there).  ``build_cache`` makes
     the full-sequence pass also return each layer's decode state (serving
     prefill: k/v over the prompt, the recurrent state after it).
     ``last_only`` applies the final norm and LM head to the last position
@@ -424,6 +438,8 @@ def forward(params, batch, cfg: ArchConfig, rcfg: RunConfig, *,
     S = x.shape[1]
     if cache is None:
         positions = torch.arange(S, device=x.device)
+    elif t_device is not None:
+        positions = t_device
     else:
         positions = t + torch.arange(1, device=x.device)
 
@@ -436,7 +452,8 @@ def forward(params, batch, cfg: ArchConfig, rcfg: RunConfig, *,
         for l, bp in enumerate(params["blocks"]):
             c = cache[l] if cache is not None else None
             x, aux_l, nc = _block_apply(bp, x, cfg, rcfg, l % P, positions=positions,
-                                        cache=c, t=t, build_cache=build_cache)
+                                        cache=c, t=t, t_device=t_device, attn_call=attn_call,
+                                        build_cache=build_cache)
             aux = aux + aux_l
             if caches is not None:
                 caches.append(nc)

@@ -76,13 +76,14 @@ def test_decode_attention_matches_jax(hd, G, t_case):
 def test_decode_attention_local_goes_through_ops(monkeypatch):
     calls = []
     monkeypatch.setattr(ops, "decode_attention",
-                        lambda *a: calls.append(a) or ("o", a[3], a[4]))
+                        lambda *a, **kw: calls.append((a, kw)) or ("o", a[3], a[4]))
     q = torch.zeros(1, 1, 4, 16).transpose(2, 3).contiguous().transpose(2, 3)
     kc, vc = torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2, 16)
     out = attention.decode_attention_local(q, torch.zeros(1, 1, 2, 16),
                                            torch.zeros(1, 1, 2, 16), kc, vc, 3)
     assert out == ("o", kc, vc) and len(calls) == 1
-    assert calls[0][0].is_contiguous() and calls[0][5] == 3
+    (args, kw), = calls
+    assert args[0].is_contiguous() and args[5] == 3 and kw == {"t_device": None}
 
 
 def test_meta_tensors_take_the_plain_version():
