@@ -47,11 +47,7 @@ On one NVIDIA card (written for an H100) it
    top kernels, and each backward kernel's time against its bounds, its
    plain version and the library's backward;
 4. times each kernel at the serving shapes against its bounds, its plain
-   version and the nearest single PyTorch call (the RMSNorm decode shape
-   both per call, host included, and per launch on the device; RMSNorm with
-   256 and with 1024 threads per row at the decode and prefill shapes), and
-   prints the device time by kernel of one full-width prefill and one decode
-   step (torch.profiler);
+   version and the nearest single PyTorch call;
 5. runs the paper's streamed-autotuning loop on the card: all 39 workloads
    at their smallest and largest dataset against the port on the CPU, the
    two runner backends against single-stream ``host-sync`` (up to (32, 64)),
@@ -507,8 +503,6 @@ def main() -> int:
               f"{t_plain:.4f} ms, F.rms_norm {t_lib:.4f} ms (rounds "
               f"{min(rounds['F.rms_norm']):.4f}-{max(rounds['F.rms_norm']):.4f}), copy of x "
               f"{t_copy:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
-    decode_device_us(torch, dev, randn, rmsnorm_cuda, F)
-    norm_threads_us(torch)
     t_kernel, t_dev, t_plain, t_lib, b_ms, b_by = norm_times["prefill"]
     rows.append(dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -519,8 +513,6 @@ def main() -> int:
     rows.extend(train.pop("rows"))
     decode["row"]["launches"] = path_launches["decode_attention"]
     rows.append(decode.pop("row"))
-
-    profile_main_path(torch, dev, build_model, cfg)
 
     # -- 5. the streamed-autotuning loop ---------------------------------------
     autotune = autotune_phase(torch, dev)
@@ -680,12 +672,13 @@ def decode_attention_phase(torch, dev, card):
         q, kn, vn, kc, vc = make(B, S, H, KV, hd)
         kr, vr = kc.clone(), vc.clone()
         want, _, _ = ref.decode_attention_ref(q, kn, vn, kr, vr, t)
-        before = da.launches
+        before = ops.launch_counts()["decode_attention"]
         got, k_out, v_out = ops.decode_attention(q, kn, vn, kc, vc, t)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         caches = bool(torch.equal(kc, kr) and torch.equal(vc, vr)) and k_out is kc and v_out is vc
-        ok = (err <= DECODE_TOL and caches and da.launches == before + 1
+        ok = (err <= DECODE_TOL and caches
+              and ops.launch_counts()["decode_attention"] == before + 1
               and got.shape == q.shape and bool(torch.isfinite(got).all()))
         worst = max(worst, err)
         n = da.plan_splits(t, B, KV, sms)
@@ -978,6 +971,19 @@ def cuda_time_ms(torch, fn, sets, iters=50):
     return sorted(loops)[1]
 
 
+SPIN = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def open_device_trace(torch):
+    """Spin the card ~10 ms as a trace opens.  The profiler can drop the
+    device events of a trace's first milliseconds (a 4-op runner run and
+    100 RMSNorm launches have come back with none, or with only their last
+    op), so the measured work starts after this and the readers skip
+    ``SPIN`` and, where they can, what precedes it."""
+    torch.cuda._sleep(20_000_000)
+    torch.cuda.synchronize()
+
+
 def device_ms(torch, fn, sets, iters=20):
     """Device ms per call of ``fn`` from torch.profiler over ``iters`` calls
     cycling through ``sets`` after one warm-up call: for every kernel, copy
@@ -990,10 +996,12 @@ def device_ms(torch, fn, sets, iters=20):
     fn(*sets[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        open_device_trace(torch)
         for i in range(iters):
             fn(*sets[i % len(sets)])
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and SPIN not in e.key]
     if not ev:
         raise SystemExit("device_ms: the profiler saw no device work")
     us, ops, parts = 0.0, 0, {}
@@ -3802,16 +3810,18 @@ def device_idle(torch, fn, path):
     to ``path``): its wall time, the device's busy time as the union of
     its kernel, copy and memset intervals on every stream (overlapping
     streams count once), kernels and copies each summed apart, and the
-    idle share.  A trace of a few milliseconds has come back with no
-    device event at all (a 4-op runner run that other card runs traced):
-    then ``fn`` runs once more under a new profiler, and a second empty
-    trace raises.  Returns ``(fn's result, stats, the profiler)``."""
+    idle share; the trace opens with ``open_device_trace``, whose spin
+    and anything before its end are not counted.  A trace of a few
+    milliseconds has come back with no device event at all: then ``fn``
+    runs once more under a new profiler, and a second empty trace raises.
+    Returns ``(fn's result, stats, the profiler)``."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(os.path.dirname(path), exist_ok=True)
     for attempt in (1, 2):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            open_device_trace(torch)
             t0 = time.perf_counter()
             result = fn()
             torch.cuda.synchronize()
@@ -3819,9 +3829,12 @@ def device_idle(torch, fn, path):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-        spans = sorted((e["ts"], e["ts"] + e["dur"], e["cat"]) for e in events
-                       if e.get("ph") == "X"
-                       and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        device = [e for e in events if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        start = max((e["ts"] + e["dur"] for e in device if SPIN in e.get("name", "")),
+                    default=float("-inf"))
+        spans = sorted((e["ts"], e["ts"] + e["dur"], e["cat"]) for e in device
+                       if e["ts"] >= start and SPIN not in e.get("name", ""))
         if spans:
             break
         print(f"{path}: the profiler saw no device work (attempt {attempt} of 2)")
@@ -3845,124 +3858,6 @@ def idle_line(idle):
             f"{idle['busy_ms']:.3f} ms (union over streams; kernels {idle['kernels_ms']:.3f}, "
             f"copies {idle['copies_ms']:.3f}; {idle['n_ops']} device ops), "
             f"idle share {idle['idle_share']:.3f}")
-
-
-def decode_device_us(torch, dev, randn, rmsnorm_cuda, F):
-    """Device time per launch at the RMSNorm decode shape, of the kernel and
-    of F.rms_norm, from torch.profiler over 200 launches each; and the host
-    cost of the two ways to read the current stream."""
-    from torch.profiler import ProfilerActivity, profile
-
-    d = YI_NORM_DECODE[-1]
-    x, s = randn(YI_NORM_DECODE, torch.float32), randn((d,), torch.float32)
-    for label, fn in (("kernel", lambda: rmsnorm_cuda(x, s)),
-                      ("F.rms_norm", lambda: F.rms_norm(x, (d,), weight=s, eps=1e-5))):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(200):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-        us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                 for e in ev)
-        n = sum(e.count for e in ev)
-        print(f"device time rmsnorm decode {YI_NORM_DECODE} fp32, {label}: "
-              f"{us / max(n, 1):.3f} us per launch over {n} launches")
-    index = torch.cuda.current_device()
-    for label, fn in (("torch.cuda.current_stream().cuda_stream",
-                       lambda: torch.cuda.current_stream(dev).cuda_stream),
-                      ("torch._C._cuda_getCurrentRawStream",
-                       lambda: torch._C._cuda_getCurrentRawStream(index))):
-        t0 = time.perf_counter()
-        for _ in range(20000):
-            fn()
-        print(f"host time {label}: {(time.perf_counter() - t0) / 20000 * 1e6:.3f} us per call")
-
-
-def norm_threads_us(torch):
-    """Device time per launch of the RMSNorm kernel with its own cap of 256
-    threads per row and with 1024 (one 16-byte access per thread at d=4096),
-    at the yi-9b decode and prefill shapes, from torch.profiler over 100
-    launches each: the measurement behind the one cap.  The library is
-    called directly, with the cap forced, so these launches are not counted
-    as the wrapper's."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import rmsnorm
-
-    lib = rmsnorm._lib or rmsnorm._load()
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    for label, shape in (("decode", YI_NORM_DECODE), ("prefill", YI_NORM_PREFILL)):
-        d = shape[-1]
-        x = torch.randn(shape, generator=gen, device="cuda")
-        s = torch.randn((d,), generator=gen, device="cuda")
-        out = torch.empty_like(x)
-        want = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-5) * s
-        row = []
-        for cap in (1024, 256):
-            def launch():
-                stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-                err = lib.rmsnorm_fwd(x.data_ptr(), s.data_ptr(), out.data_ptr(),
-                                      x.numel() // d, d, 1e-5, 0, cap,
-                                      stream)
-                if err:
-                    raise RuntimeError(f"rmsnorm launch with {cap} threads failed: {err}")
-
-            launch()
-            torch.cuda.synchronize()
-            err = (out - want).abs().max().item()
-            if err > NORM_TOL["float32"]:
-                raise SystemExit(f"rmsnorm {label} with {cap} threads: max_abs_err {err:.3e}")
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(100):
-                    launch()
-                torch.cuda.synchronize()
-            ev = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-            us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                     for e in ev)
-            n = sum(e.count for e in ev)
-            row.append(f"{cap} threads {us / max(n, 1):.3f} us (err {err:.1e})")
-        print(f"device time rmsnorm {label} {shape} fp32 per launch by thread cap: "
-              + ", ".join(row))
-
-
-def profile_main_path(torch, dev, build_model, cfg):
-    """Device time by kernel for one full-width prefill (4 x 512) and one
-    decode step, under torch.profiler."""
-    model = build_model("yi-9b", device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    toks = torch.from_numpy(_prompts(cfg.vocab_size, (4, 512))).to(dev)
-    with torch.inference_mode():
-        logits, filled = model.prefill(params, {"tokens": toks})
-        cache = model.init_cache(4, 528)
-        for layer, layer_filled in zip(cache, filled):
-            for kv in ("k", "v"):
-                layer[kv][:, :512] = layer_filled[kv]
-        del filled
-        nxt = {"tokens": logits.argmax(dim=-1)[:, None]}
-        model.decode_step(params, nxt, cache, 512)
-        torch.cuda.synchronize()
-        for label, fn in (("prefill 4x512", lambda: model.prefill(params, {"tokens": toks})),
-                          ("decode step", lambda: model.decode_step(params, nxt, cache, 513))):
-            _, idle, prof = device_idle(
-                torch, fn, os.path.join(ROOT, "build", "chip_smoke",
-                                        f"profile_{label.split()[0]}.json"))
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-
-            def dev_us(e):
-                return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-
-            busy_ms = idle["busy_ms"]
-            print(f"profile {label}: {idle_line(idle)}")
-            for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
-                print(f"  {dev_us(e) / 1e3:9.3f} ms {dev_us(e) / 1e3 / busy_ms:6.1%} "
-                      f"x{e.count:<5d} {e.key[:90]}")
-    del params, cache
-    torch.cuda.empty_cache()
 
 
 def _to(tree, device):

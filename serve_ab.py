@@ -1,19 +1,17 @@
 #!/usr/bin/env python3
 """Same-card A/B of the PyTorch/CUDA port between two source trees.
 
-    python3 serve_ab.py --a OLD/src --b src [--workload lm|runner|train|moe]
-                        [--rounds 4] [--serves 2] [--reps 5]
+    python3 serve_ab.py --workload runner|train|moe --a OLD/src --b src
+                        [--rounds 4] [--reps 5]
 
 Each of ``--a`` and ``--b`` is a ``src`` directory that holds ``repro_torch``
 (for example an older commit unpacked with ``git archive``).  The script runs
 one worker process per tree in the order a, b, b, a, a, b, ... (``--rounds``
 pairs); alternating the trees within one call spreads the shared host's drift
 over both.  TF32 is off in every worker.  ``--workload`` picks what a worker
-times:
+times (the benchmark's ``yi-9b.*`` cells, ``portbench/``, time the language
+model's serving):
 
-* ``lm`` (default): serves yi-9b at full width and depth ``--serves`` times:
-  fp32, 8 requests in 4 slots, prompt 512, 16 new tokens, as
-  ``chip_smoke.py`` phase 3 does; decode and prefill seconds per serve.
 * ``runner``: ``StreamedRunner.run`` (H2D, kernels, D2H of every slice; the
   min of ``--reps``) on the cells below, at each program's largest dataset,
   with ``host-sync`` and ``host-pipelined``; milliseconds per cell.
@@ -42,14 +40,12 @@ import subprocess
 import sys
 import time
 
-ARCH, N_REQ, SLOTS, PROMPT, GEN = "yi-9b", 8, 4, 512, 16
 # (program, partitions, tasks): the fewest and the most slices of vecadd,
 # binomial's launch train, and two mid-grid splits
 CELLS = (("vecadd", 1, 1), ("vecadd", 32, 64), ("binomial", 1, 1),
          ("mvmult", 4, 8), ("jacobi-1d", 1, 1), ("jacobi-1d", 2, 16))
 BACKENDS = ("host-sync", "host-pipelined")
-METRICS = {"lm": ("decode_s", "prefill_s"), "runner": ("ms",), "train": ("device_ms", "step_s"),
-           "moe": ("prefill_s", "decode_ms")}
+METRICS = {"runner": ("ms",), "train": ("device_ms", "step_s"), "moe": ("prefill_s", "decode_ms")}
 # (arch, layers kept of its stack, None for all), 4 x 512 prompt, 8 tokens
 MOE_CELLS = (("xlstm-350m", None), ("grok-1-314b", 2), ("jamba-1.5-large-398b", 2),
              ("arctic-480b", 1))
@@ -58,26 +54,6 @@ MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 512, 8
 # (B, S, H, KV, hd) and its RMSNorm rows x width
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = "stablelm-3b", 4, 512, 2, 6
 TRAIN_ATTN, TRAIN_NORM = (2, 512, 32, 32, 80), (1024, 2560)
-
-
-def lm_worker(label: str, args) -> None:
-    import torch
-
-    from repro_torch.kernels import _build
-    from repro_torch.launch.serve import serve
-
-    _build.build_all()
-    for i in range(args.serves):
-        res = serve(ARCH, reduced=False, n_requests=N_REQ, batch_slots=SLOTS,
-                    prompt_len=PROMPT, gen_len=GEN, device="cuda", verbose=False)
-        if not res.logits_finite:
-            raise SystemExit(f"{label}: non-finite logits")
-        print(json.dumps({"tree": label, "cell": f"{ARCH} serve", "serve": i,
-                          "wall_s": res.wall_s, "prefill_s": res.prefill_s,
-                          "decode_s": res.wall_s - res.prefill_s,
-                          "tokens_per_s": res.tokens_per_s}), flush=True)
-        del res
-        torch.cuda.empty_cache()
 
 
 def moe_worker(label: str, args) -> None:
@@ -221,9 +197,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--a", help="src directory of tree a")
     ap.add_argument("--b", help="src directory of tree b")
-    ap.add_argument("--workload", choices=sorted(METRICS), default="lm")
+    ap.add_argument("--workload", choices=sorted(METRICS), required=True)
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--serves", type=int, default=2, help="lm: serves per worker")
     ap.add_argument("--reps", type=int, default=5, help="runner: runs per cell, min taken")
     ap.add_argument("--archs", default="", help="moe: a comma-separated subset of its archs")
     ap.add_argument("--worker", nargs=2, metavar=("SRC", "LABEL"), help=argparse.SUPPRESS)
@@ -235,8 +210,7 @@ def main() -> int:
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        {"lm": lm_worker, "runner": runner_worker, "train": train_worker,
-         "moe": moe_worker}[args.workload](
+        {"runner": runner_worker, "train": train_worker, "moe": moe_worker}[args.workload](
             label, args)
         return 0
     if not (args.a and args.b):
@@ -250,7 +224,7 @@ def main() -> int:
         for label in ("ab" if r % 2 == 0 else "ba"):
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--workload", args.workload,
-                 "--serves", str(args.serves), "--reps", str(args.reps), "--archs", args.archs,
+                 "--reps", str(args.reps), "--archs", args.archs,
                  "--worker", trees[label], label],
                 capture_output=True, text=True)
             sys.stderr.write(out.stderr[-4000:])

@@ -9,6 +9,11 @@ they may include (``csrc/*.cuh``) and the flags, so an edited source or
 header is rebuilt and a stale library is never loaded.  A failed
 build raises with the compiler's output; nothing falls back to the plain
 PyTorch version.
+
+Each wrapper declares its C entry points as ``Entry`` objects, which load
+the library, set the ctypes signature, launch on the device's current
+stream, raise with the library's ``<name>_error_string`` and count the
+launches (``LAUNCHES``), so no wrapper holds a library or a counter.
 """
 from __future__ import annotations
 
@@ -134,13 +139,54 @@ def sm_count(index: int) -> int:
     return sms
 
 
-def call_on_stream(index: int, fn, *args) -> int:
-    """Call the ctypes entry point ``fn(*args, stream)`` with device
-    ``index`` current and its current stream's raw handle, as Triton's and
-    Inductor's launchers do: no ``torch.cuda.Stream`` is built, and the
-    device is switched only when it is not current already (one query)."""
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == torch._C._cuda_getDevice():
-        return fn(*args, stream)
-    with torch.cuda.device(index):
-        return fn(*args, stream)
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a copy where a view starts off the 16-byte grid
+    that the kernels' 16-byte copies need (a fresh allocation is on it)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# Launches that returned 0, by library, since the last reset (a launch
+# captured in a CUDA graph counts at its capture, not at its replays)
+LAUNCHES: dict[str, int] = dict.fromkeys(SOURCES, 0)
+# the C types of the entries' signatures
+PTR, INT, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+
+class Entry:
+    """The C entry point ``symbol`` of library ``library``, resolved with
+    its signature at the first call.  ``launch`` calls a kernel entry (the
+    stream last, an error code back); calling the entry runs a query."""
+
+    def __init__(self, library: str, symbol: str, argtypes, restype=INT):
+        self.library, self.symbol = library, symbol
+        self.argtypes, self.restype = argtypes, restype
+        self._fn = self._message = None
+
+    def _resolve(self):
+        lib = load(self.library)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes, fn.restype = self.argtypes, self.restype
+        message = getattr(lib, f"{self.library}_error_string")
+        message.argtypes, message.restype = [INT], ctypes.c_char_p
+        self._fn, self._message = fn, message
+        return fn
+
+    def __call__(self, *args):
+        return (self._fn or self._resolve())(*args)
+
+    def launch(self, index: int, *args) -> None:
+        """Launch on device ``index``'s current stream by its raw handle, as
+        Triton's and Inductor's launchers do (no ``torch.cuda.Stream`` is
+        built; the device is switched only when it is not current); raise
+        with the library's words on a nonzero return, else count it."""
+        fn = self._fn or self._resolve()
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if index == torch._C._cuda_getDevice():
+            err = fn(*args, stream)
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, stream)
+        if err:
+            raise RuntimeError(f"{self.library} kernel launch failed: "
+                               f"{self._message(err).decode()} ({err})")
+        LAUNCHES[self.library] += 1

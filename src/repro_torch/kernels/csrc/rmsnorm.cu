@@ -117,56 +117,52 @@ cudaError_t launch(const void* x, const float* scale, void* out, long long rows,
   return cudaGetLastError();
 }
 
-// The fewest accesses per thread that cover a row with at most
-// max_threads threads; at most 16 values per thread, which covers d <= 8192
-// with up to 1024 threads.
+// Threads per row are capped at 256 for every row count: at the decode
+// shape (4 x 4096 fp32) 1024 threads with one access each are no faster on
+// an H100, and at the prefill shape (2048 x 4096) they are slower, since a
+// 1024-thread block keeps fewer loads in flight per SM.
+constexpr int kRowThreads = 256;
+
+// The fewest accesses per thread that cover a row with at most kRowThreads
+// threads; at most 16 values per thread, where up to kMaxThreads threads
+// cover d <= 8192.
 template <typename T, int VEC, int VPT = 1>
 cudaError_t dispatch_width(const void* x, const float* scale, void* out, long long rows,
-                           int d, int max_threads, float eps, cudaStream_t stream) {
+                           int d, float eps, cudaStream_t stream) {
   constexpr bool kLast = VPT * VEC >= 16;
   const int n_vec = d / VEC;
-  if (n_vec <= (kLast ? kMaxThreads : max_threads) * VPT) {
+  if (n_vec <= (kLast ? kMaxThreads : kRowThreads) * VPT) {
     const int threads = ((n_vec + VPT - 1) / VPT + 31) / 32 * 32;
     return launch<T, VEC, VPT>(x, scale, out, rows, d, threads, eps, stream);
   }
   if constexpr (!kLast) {
-    return dispatch_width<T, VEC, 2 * VPT>(x, scale, out, rows, d, max_threads, eps, stream);
+    return dispatch_width<T, VEC, 2 * VPT>(x, scale, out, rows, d, eps, stream);
   } else {
     return cudaErrorInvalidValue;
   }
 }
 
-// Threads per row are capped at 256 for every row count: at the decode
-// shape (4 x 4096 fp32) 1024 threads with one access each are no faster on
-// an H100, and at the prefill shape (2048 x 4096) they are slower, since a
-// 1024-thread block keeps fewer loads in flight per SM.  chip_smoke.py times
-// both caps at both shapes; max_threads > 0 forces a cap for that.
-constexpr int kRowThreads = 256;
-
 template <typename T>
 cudaError_t dispatch(const void* x, const float* scale, void* out, long long rows, int d,
-                     float eps, int max_threads, cudaStream_t stream) {
+                     float eps, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
-  if (max_threads <= 0) max_threads = kRowThreads;
   const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 == 0
                        && reinterpret_cast<uintptr_t>(scale) % (4 * kVec) == 0;
   if (aligned && d % kVec == 0)
-    return dispatch_width<T, kVec>(x, scale, out, rows, d, max_threads, eps, stream);
-  return dispatch_width<T, 1>(x, scale, out, rows, d, max_threads, eps, stream);
+    return dispatch_width<T, kVec>(x, scale, out, rows, d, eps, stream);
+  return dispatch_width<T, 1>(x, scale, out, rows, d, eps, stream);
 }
 
 }  // namespace
 
 extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out,
-                           long long rows, int d, float eps, int is_bf16,
-                           int max_threads, void* stream) {
-  if (d <= 0 || rows > 0x7fffffffLL || max_threads > kMaxThreads)
-    return (int)cudaErrorInvalidValue;
+                           long long rows, int d, float eps, int is_bf16, void* stream) {
+  if (d <= 0 || rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
-  cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(x, sc, out, rows, d, eps, max_threads, s)
-                            : dispatch<float>(x, sc, out, rows, d, eps, max_threads, s);
+  cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(x, sc, out, rows, d, eps, s)
+                            : dispatch<float>(x, sc, out, rows, d, eps, s);
   return (int)err;
 }
 

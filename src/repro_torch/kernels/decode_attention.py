@@ -8,36 +8,21 @@ decode step; the kernel reads only the filled positions, in place, and
 writes the new token's k/v in the same launch.  CUDA C++ for ``sm_90a``,
 built by ``kernels._build`` at first use and called through ctypes on
 PyTorch's current stream; see the source's header for its design and bound.
-``launches`` counts the calls that launched it: a launch captured in a CUDA
-graph counts once, at its capture, and not at its replays.
 """
 from __future__ import annotations
 
-import ctypes
 import operator
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import HEAD_DIMS, _aligned
+from repro_torch.kernels._build import F32, INT, PTR, Entry, aligned
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 
 MAX_GROUP = 16   # query heads a k/v head
 MIN_SPLIT = 32   # the shortest split: one tile of the kernel's positions
 
-launches = 0
-_lib: ctypes.CDLL | None = None
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    lib = _build.load("decode_attention")
-    lib.decode_attention_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                                         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    lib.decode_attention_fwd.restype = ctypes.c_int
-    lib.decode_attention_error_string.argtypes = [ctypes.c_int]
-    lib.decode_attention_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+_FWD = Entry("decode_attention", "decode_attention_fwd", [PTR] * 7 + [INT] * 7 + [F32, PTR, PTR])
 
 
 def plan_splits(t: int, batch: int, kv_heads: int, sms: int) -> int:
@@ -50,6 +35,16 @@ def plan_splits(t: int, batch: int, kv_heads: int, sms: int) -> int:
     ran as fast as or faster than 16.  Split ``s`` of ``n`` covers positions
     ``s * (t + 1) // n`` up to ``(s + 1) * (t + 1) // n``."""
     return max(1, min(sms // (batch * kv_heads), (t + 1) // MIN_SPLIT))
+
+
+def splits(k_cache: torch.Tensor, t: int) -> int:
+    """The split count of a launch at position ``t`` on ``k_cache``
+    (B,S,KV,hd): :func:`plan_splits` at the SM count of the cache's device.
+    The wrapper launches with it and a CUDA graph of the decode step keys
+    on it (``models/decode_graph.py``), so a replay runs the split count
+    that the eager step would."""
+    B, _, KV, _ = k_cache.shape
+    return plan_splits(t, B, KV, _build.sm_count(k_cache.device.index))
 
 
 def _check(q, k_new, v_new, k_cache, v_cache, t: int) -> None:
@@ -103,29 +98,20 @@ def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, t, *, t_device=None
     launch captured in a CUDA graph serves every later step that writes its
     own t there first.  ``t`` itself is still range-checked and picks the
     split count, which such a graph keeps."""
-    global launches
     t = operator.index(t)
     if t_device is not None:
         _check_t_device(t_device, q)
     _check(q, k_new, v_new, k_cache, v_cache, t)
-    q, k_new, v_new = _aligned(q), _aligned(k_new), _aligned(v_new)
+    q, k_new, v_new = aligned(q), aligned(k_new), aligned(v_new)
     B, S, KV, hd = k_cache.shape
     H = q.shape[2]
-    index = q.device.index
-    n_splits = plan_splits(t, B, KV, _build.sm_count(index))
+    n_splits = splits(k_cache, t)
     o = torch.empty_like(q)
     # each split's (max, sum, weighted sum) of every (b, h) row
     part = (torch.empty(B * H * n_splits * (hd + 2), dtype=torch.float32, device=q.device)
             if n_splits > 1 else None)
-    lib = _lib or _load()
-    err = _build.call_on_stream(
-        index, lib.decode_attention_fwd, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        None if part is None else part.data_ptr(),
-        B, S, H, KV, hd, t, n_splits, 1.0 / (hd ** 0.5),
-        None if t_device is None else t_device.data_ptr())
-    if err:
-        msg = lib.decode_attention_error_string(err).decode()
-        raise RuntimeError(f"decode_attention kernel launch failed: {msg} ({err})")
-    launches += 1
+    _FWD.launch(q.device.index, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
+                None if part is None else part.data_ptr(), B, S, H, KV, hd, t, n_splits,
+                1.0 / (hd ** 0.5), None if t_device is None else t_device.data_ptr())
     return o, k_cache, v_cache

@@ -22,7 +22,8 @@ a DTensor input call the kernel on its local shard, and the registered
 autograd makes the backward op a node of a traced training step.  Only
 DTensor, ``meta`` and fake tensors take that route; a plain CPU or CUDA
 tensor takes the direct path above, which adds no dispatcher time to the
-host-bound decode step.
+eager steps: hybrid and MoE decode, a cache's first dense decode step and
+its capture (later dense steps replay CUDA graphs), prefill, training.
 
 ``decode_attention`` (one decode step against a preallocated k/v cache) has
 no Pallas counterpart: the JAX package's is plain jnp.  A plain CUDA tensor
@@ -42,6 +43,7 @@ from __future__ import annotations
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
@@ -73,7 +75,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         if q.device.type == "cuda":
             # the tensors the kernel read, so the backward reads the same
-            q, k, v = _fa._aligned(q), _fa._aligned(k), _fa._aligned(v)
+            q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
             o, lse = _fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
         else:
             o = flash_attention_ref(q, k, v, causal=causal)
@@ -331,14 +333,8 @@ _SHARDING_REGISTERED = False
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches made by each wrapper since the last reset."""
-    return {"flash_attention": _fa.launches, "flash_attention_bwd": _fa.bwd_launches,
-            "rmsnorm": _rms.launches, "rmsnorm_bwd": _rms.bwd_launches,
-            "decode_attention": _da.launches}
+    return dict(_build.LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    _fa.launches = 0
-    _fa.bwd_launches = 0
-    _rms.launches = 0
-    _rms.bwd_launches = 0
-    _da.launches = 0
+    _build.LAUNCHES.update(dict.fromkeys(_build.LAUNCHES, 0))

@@ -6,55 +6,25 @@ The forward replaces ``rmsnorm_pallas`` of the JAX package's
 leaves to XLA's autodiff of the jnp RMSNorm.  Both kernels are CUDA C++ for
 ``sm_90a``, built by ``kernels._build`` at first use and called through
 ctypes on PyTorch's current stream; see the sources' headers for their
-design and bounds.  ``launches`` and ``bwd_launches`` count the calls of
-each wrapper that launched its kernel.
+design and bounds.
 
-The wrapper is on the decode path 97 times per step at 4 rows, where its
-host time is most of the cost, so it does as little per call as keeps every
-check: the ctypes function is resolved once, the stream handle is read raw,
+In the eager steps (hybrid and MoE decode, a cache's first dense decode
+step and its capture, prefill, training) a decode row's host time is most
+of its cost, so the wrapper does only its checks: the entry resolves once,
 and ``scale`` is converted only when it is not fp32 and contiguous already.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import F32, I64, INT, PTR, Entry
 
 MAX_WIDTH = 8192  # the widest row the kernel keeps in registers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
-bwd_launches = 0
-_lib: ctypes.CDLL | None = None
-_bwd_lib: ctypes.CDLL | None = None
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    lib = _build.load("rmsnorm")
-    lib.rmsnorm_fwd.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
-    lib.rmsnorm_fwd.restype = ctypes.c_int
-    lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
-    lib.rmsnorm_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
-
-
-def _load_bwd() -> ctypes.CDLL:
-    global _bwd_lib
-    lib = _build.load("rmsnorm_bwd")
-    lib.rmsnorm_bwd.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
-    lib.rmsnorm_bwd.restype = ctypes.c_int
-    lib.rmsnorm_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.rmsnorm_bwd_error_string.restype = ctypes.c_char_p
-    _bwd_lib = lib
-    return lib
+_FWD = Entry("rmsnorm", "rmsnorm_fwd", [PTR] * 3 + [I64, INT, F32, INT, PTR])
+_BWD = Entry("rmsnorm_bwd", "rmsnorm_bwd", [PTR] * 6 + [INT, I64, INT, F32, INT, INT, PTR])
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor) -> int:
@@ -79,22 +49,14 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
                  eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm of x (..., d) with scale (d,), by the hand-written kernel.
     Raises on anything it cannot launch."""
-    global launches
     code = _check(x, scale)
     device, d = x.device, x.shape[-1]
     # The kernel reads the scale in fp32, as the reference upcasts it.
     if scale.dtype != torch.float32 or not scale.is_contiguous():
         scale = scale.to(torch.float32).contiguous()
     out = torch.empty_like(x)
-    lib = _lib or _load()
-    err = _build.call_on_stream(
-        device.index, lib.rmsnorm_fwd, x.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), x.numel() // d, d, eps, code,
-        0)  # threads per row: the kernel's own choice
-    if err:
-        msg = lib.rmsnorm_error_string(err).decode()
-        raise RuntimeError(f"rmsnorm kernel launch failed: {msg} ({err})")
-    launches += 1
+    _FWD.launch(device.index, x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                x.numel() // d, d, eps, code)
     return out
 
 
@@ -104,7 +66,6 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     output gradient ``dy``, by the hand-written backward kernels: dx in x's
     dtype, dscale in scale's (the forward reads scale upcast to fp32).
     Raises on anything it cannot launch."""
-    global bwd_launches
     code = _check(x, scale)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"want dy like x {tuple(x.shape)} {x.dtype}; got "
@@ -129,13 +90,7 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     # row of partial dscale sums
     n_parts = min(rows, 2 * sms)
     partial = torch.empty((n_parts, d), dtype=torch.float32, device=device)
-    lib = _bwd_lib or _load_bwd()
-    err = _build.call_on_stream(
-        device.index, lib.rmsnorm_bwd, x.data_ptr(), scale32.data_ptr(), dy.data_ptr(),
-        dx.data_ptr(), dscale.data_ptr(), partial.data_ptr(), n_parts, rows, d, eps,
-        code, _DTYPE_CODE[out_dtype])
-    if err:
-        msg = lib.rmsnorm_bwd_error_string(err).decode()
-        raise RuntimeError(f"rmsnorm_bwd kernel launch failed: {msg} ({err})")
-    bwd_launches += 1
+    _BWD.launch(device.index, x.data_ptr(), scale32.data_ptr(), dy.data_ptr(),
+                dx.data_ptr(), dscale.data_ptr(), partial.data_ptr(), n_parts, rows, d, eps,
+                code, _DTYPE_CODE[out_dtype])
     return dx, dscale if out_dtype == scale.dtype else dscale.to(scale.dtype)

@@ -19,8 +19,9 @@ sharded decode runs collectives; and the flash-decode kernel is fp32.
 **What makes a replay right.**  The flash-decode kernel and RoPE read
 ``t`` from a one-element device tensor (``transformer.forward``'s
 ``t_device``), so the graphs hold no position.  The split count of the
-flash-decode kernel, which a graph keeps, comes from t on the host, and
-is part of the key.  Every pointer a graph reads is part of the key too:
+flash-decode kernel, which a graph keeps, comes from t on the host
+(``kernels.decode_attention.splits``, as the launch takes it), and is
+part of the key.  Every pointer a graph reads is part of the key too:
 the parameters' and the cache's, the batch size and the tokens' dtype.  A
 step whose key differs from the graphs' runs eagerly (``transformer.forward``,
 as a bypassed model does), which also warms every kernel, cuBLAS
@@ -55,8 +56,7 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.core.backends.base import new_stream, release_stream
-from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import plan_splits
+from repro_torch.kernels.decode_attention import splits
 from repro_torch.models import transformer
 from repro_torch.spans import span
 
@@ -77,11 +77,10 @@ def _key(params, batch, cache, t: int) -> tuple:
     """What a graph set must match to serve this step; raises where ``t``
     lies outside the cache, as the kernel's wrapper does."""
     tokens, k0 = batch["tokens"], cache[0]["k"]
-    B, S, KV, _ = k0.shape
+    S = k0.shape[1]
     if not 0 <= t < S:
         raise ValueError(f"t={t} is outside the caches' {S} positions")
-    return (tuple(tokens.shape), tokens.dtype, tuple(k0.shape),
-            plan_splits(t, B, KV, _build.sm_count(k0.device.index)),
+    return (tuple(tokens.shape), tokens.dtype, tuple(k0.shape), splits(k0, t),
             tuple(x.data_ptr() for x in tree_lib.leaves(params)),
             tuple(c[kv].data_ptr() for c in cache for kv in ("k", "v")))
 

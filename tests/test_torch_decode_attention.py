@@ -137,10 +137,10 @@ def test_a_dtensor_on_the_card_raises_and_never_takes_the_plain_version(which, m
     args = {k: torch.zeros(v) for k, v in shapes.items()}
     args[which] = _dtensor_on_card(shapes[which])
     assert type(args[which]).__name__ == "DTensor" and args[which].device.type == "cuda"
-    before = da.launches
+    before = ops.launch_counts()["decode_attention"]
     with pytest.raises(ValueError, match="no kernel for a DTensor on cuda"):
         ops.decode_attention(*args.values(), 5)
-    assert da.launches == before
+    assert ops.launch_counts()["decode_attention"] == before
 
 
 def test_fake_tensors_on_the_card_take_the_plain_version(monkeypatch):
@@ -225,10 +225,10 @@ def test_decode_wrapper_refuses_what_the_kernel_cannot_take(case, err, match):
     if case == "non-contiguous-cache":
         vc = _cpu((1, kv, Sc, hd)).transpose(1, 2)
     t = {"t-past-the-end": Sc, "t-negative": -1}.get(case, t)
-    before = da.launches
+    before = ops.launch_counts()["decode_attention"]
     with pytest.raises(err, match=match):
         da.decode_attention_cuda(q, kn, vn, kc, vc, t)
-    assert da.launches == before
+    assert ops.launch_counts()["decode_attention"] == before
 
 
 def test_the_kernel_source_is_fp32_on_the_cuda_cores():

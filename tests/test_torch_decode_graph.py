@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.models import decode_graph, transformer  # noqa: E402
 from repro_torch.models.model_zoo import Model  # noqa: E402
@@ -130,7 +131,29 @@ def test_the_wrapper_refuses_a_t_it_cannot_read(t_device):
     q = torch.zeros(1, 1, 8, 64)
     kn = torch.zeros(1, 1, 2, 64)
     kc = torch.zeros(1, 16, 2, 64)
-    before = da.launches
+    before = ops.launch_counts()["decode_attention"]
     with pytest.raises(ValueError, match="t_device"):
         da.decode_attention_cuda(q, kn, kn, kc, kc.clone(), 3, t_device=t_device)
-    assert da.launches == before
+    assert ops.launch_counts()["decode_attention"] == before
+
+
+@pytest.mark.parametrize("sms", [132, 16, 4])
+def test_the_graph_key_and_the_launch_take_one_split_count(sms, monkeypatch):
+    """A graph's key and the wrapper's launch take the flash-decode split
+    count from ``kernels.decode_attention.splits``: with the device's SM
+    count patched, both follow it (the launch is caught before the card)."""
+    B, S, H, KV, hd, t = 2, 512, 8, 2, 64, 300
+    monkeypatch.setattr(_build, "sm_count", lambda index: sms)
+    monkeypatch.setattr(da, "_check", lambda *args: None)
+    launched = []
+    # the launch's arguments after the device: 7 pointers, B, S, H, KV, hd,
+    # t, then the split count
+    monkeypatch.setattr(da._FWD, "launch", lambda index, *args: launched.append(args[13]))
+    q, kn = torch.zeros(B, 1, H, hd), torch.zeros(B, 1, KV, hd)
+    cache = [{"k": torch.zeros(B, S, KV, hd), "v": torch.zeros(B, S, KV, hd)}]
+    da.decode_attention_cuda(q, kn, kn, cache[0]["k"], cache[0]["v"], t)
+    key = decode_graph._key({"w": torch.zeros(1)}, {"tokens": torch.zeros(B, 1)}, cache, t)
+    want = da.plan_splits(t, B, KV, sms)
+    assert launched == [want] and key[3] == want
+    assert want == {132: 9, 16: 4, 4: 1}[sms]
+    assert not hasattr(decode_graph, "_build")  # the model layer plans nothing itself

@@ -7,6 +7,7 @@ handed to both.  The CUDA kernels themselves are held against the same
 plain versions on the card by ``chip_smoke.py``.
 """
 import re
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +19,14 @@ from repro.kernels.ops import flash_attention as jax_flash_attention
 from repro.kernels.ops import rmsnorm as jax_rmsnorm
 from repro.models.attention import reference_attention as jax_reference_attention
 from repro_torch.configs.base import get_arch, list_archs
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, decode_attention, flash_attention, ops, rmsnorm
 from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+# every C entry point the wrappers declare, and the one launch entry of
+# each library
+ENTRIES = [e for m in (flash_attention, rmsnorm, decode_attention)
+           for e in vars(m).values() if isinstance(e, _build.Entry)]
+LAUNCH_ENTRIES = {e.library: e for e in ENTRIES if e.restype is _build.INT}
 
 SHAPES = [
     # B, S, H, KV, hd
@@ -389,10 +396,9 @@ def test_build_names_libraries_by_source_and_honours_build_dir(monkeypatch, tmp_
     assert all(p.parent == tmp_path and p.suffix == ".so" for p in paths.values())
     assert len(set(paths.values())) == len(_build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    entry = {"flash_attention": "flash_attention_fwd", "rmsnorm": "rmsnorm_fwd",
-             "flash_attention_bwd": "flash_attention_bwd", "rmsnorm_bwd": "rmsnorm_bwd",
-             "decode_attention": "decode_attention_fwd"}
-    assert set(_build.SOURCES) == set(entry)
+    launches = sorted(e.library for e in ENTRIES if e.restype is _build.INT)
+    assert launches == sorted(_build.SOURCES)  # one launch entry a library
+    c_type = {_build.INT: "int", _build.I64: "long long"}
     for name, src in _build.SOURCES.items():
         text = src.read_text()
         # names the TPU kernel it replaces, or whose gradient it computes, or
@@ -402,7 +408,87 @@ def test_build_names_libraries_by_source_and_honours_build_dir(monkeypatch, tmp_
             assert "src/repro/models/attention.py, decode_attention_local" in text
         else:
             assert f"src/repro/kernels/{name.removesuffix('_bwd')}.py" in text
-        assert f'extern "C" int {entry[name]}(' in text
+        assert f'extern "C" int {LAUNCH_ENTRIES[name].symbol}(' in text
+        assert f'extern "C" const char* {name}_error_string(int err)' in text
+    for e in ENTRIES:
+        text = _build.SOURCES[e.library].read_text()
+        assert f'extern "C" {c_type[e.restype]} {e.symbol}(' in text, e.symbol
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """Replace the C library of ``library`` with one whose entries return
+    ``ret`` (recording their arguments) and whose error string names the
+    code, and the stream lookup with a fixed handle on a current device 0.
+    Returns the calls made."""
+    calls = []
+
+    def install(library: str, ret: int):
+        entries = [e for e in ENTRIES if e.library == library]
+
+        def fn(*args):
+            calls.append(args)
+            return ret
+
+        lib = types.SimpleNamespace(**{e.symbol: fn for e in entries})
+        setattr(lib, f"{library}_error_string", lambda err: f"fake failure {err}".encode())
+        monkeypatch.setattr(_build, "load",
+                            lambda name: lib if name == library else pytest.fail(name))
+        for e in entries:
+            monkeypatch.setattr(e, "_fn", None)
+            monkeypatch.setattr(e, "_message", None)
+        return calls
+
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 4321,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    return install
+
+
+@pytest.mark.parametrize("library", list(_build.SOURCES))
+def test_a_launch_that_returns_0_counts_once_under_its_library(library, fake_library):
+    calls = fake_library(library, 0)
+    entry = LAUNCH_ENTRIES[library]
+    ops.reset_launch_counts()
+    entry.launch(0, 11, 12)
+    entry.launch(0, 13)
+    assert calls == [(11, 12, 4321), (13, 4321)]  # the stream handle last
+    assert ops.launch_counts() == {**dict.fromkeys(_build.SOURCES, 0), library: 2}
+    fn = getattr(_build.load(library), entry.symbol)
+    assert fn.argtypes is entry.argtypes and fn.restype is _build.INT
+
+
+@pytest.mark.parametrize("library", list(_build.SOURCES))
+def test_a_failed_launch_raises_in_the_librarys_words_and_counts_nothing(library,
+                                                                          fake_library):
+    calls = fake_library(library, 700)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError,
+                       match=rf"^{library} kernel launch failed: fake failure 700 \(700\)$"):
+        LAUNCH_ENTRIES[library].launch(0, 11)
+    assert calls == [(11, 4321)]
+    assert ops.launch_counts() == dict.fromkeys(_build.SOURCES, 0)
+
+
+def test_a_query_reads_no_stream_and_counts_nothing(fake_library, monkeypatch):
+    """``flash_attention_bwd_scratch`` is asked for a size, not launched."""
+    calls = fake_library("flash_attention_bwd", 4096)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: pytest.fail("a query read the stream"), raising=False)
+    ops.reset_launch_counts()
+    assert flash_attention._BWD_SCRATCH(1, 2, 3, 4, 5, 6) == 4096
+    assert calls == [(1, 2, 3, 4, 5, 6)]
+    assert ops.launch_counts() == dict.fromkeys(_build.SOURCES, 0)
+
+
+def test_reset_launch_counts_zeroes_all_five():
+    for i, name in enumerate(_build.SOURCES):
+        _build.LAUNCHES[name] = i + 1
+    counts = ops.launch_counts()
+    assert counts == {name: i + 1 for i, name in enumerate(_build.SOURCES)}
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == dict.fromkeys(_build.SOURCES, 0) != counts
+    assert len(counts) == 5
 
 
 def test_library_names_follow_the_shared_header(monkeypatch, tmp_path):
