@@ -19,7 +19,11 @@ On one NVIDIA card (written for an H100) it
    width and depth, batch 32 and 4, 64 steps each: tokens, logits and
    caches bitwise, the captures and replays, no synchronisation, the
    graphs' memory freed with their cache) and the kernel's device-held t
-   against t by value;
+   against t by value; holds the decode step's weight-streaming product
+   (``csrc/decode_proj.cu``) against an fp64 product at every product of
+   yi-9b, stablelm-3b and jamba2-mini at 4, 16 and 32 rows (at most twice
+   cuBLAS's fp32 error, repeats and a graph replay bitwise equal) and times
+   it against its bound and cuBLAS;
 3. serves 8 requests on yi-9b at full width and depth (fp32, prompt 512,
    16 new tokens), then 4 requests on stablelm-3b at full width and depth
    (head dim 80, prompt 256, 8 new tokens), and checks for each that every
@@ -123,7 +127,8 @@ On one NVIDIA card (written for an H100) it
    line, ``{"chaos": ...}``, ``{"recurrent_moe": ...}``,
    ``{"train": ...}``, ``{"baselines": ...}``, ``{"real_trace": ...}``,
    ``{"fleet": ...}``, ``{"sharding": ...}``, ``{"roofline": ...}`` and
-   ``{"decode_attention": ...}`` and ``{"decode_graph": ...}`` lines, a
+   ``{"decode_attention": ...}``, ``{"decode_graph": ...}`` and
+   ``{"decode_proj": ...}`` lines, a
    ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, ...}``.
 
@@ -328,6 +333,7 @@ def main() -> int:
     property_sweeps(torch, dev, failures)
     decode = decode_attention_phase(torch, dev, card)
     graphs = decode_graph_phase(torch, dev, card)
+    proj = decode_proj_phase(torch, dev, card)
 
     # The main path at a small size: reduced yi-9b, the same weights on the
     # card and on the CPU (plain versions) give the same logits and tokens.
@@ -362,9 +368,12 @@ def main() -> int:
     # cache's graphs (each counting a step's launches); the rest replay
     # them, which launches no wrapper
     n_forwards = n_batches * 3  # a prefill, the eager step and the capture
+    # the weight-streaming product: each prefill's head at the last
+    # positions, and every product of the eager step and the capture
     want_launches = launch_dict(flash_attention=n_batches * cfg.num_layers,
                                 rmsnorm=n_forwards * (2 * cfg.num_layers + 1),
-                                decode_attention=2 * n_batches * cfg.num_layers)
+                                decode_attention=2 * n_batches * cfg.num_layers,
+                                decode_proj=n_batches * (1 + 2 * _projs_per_decode(cfg)))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ops.reset_launch_counts()
@@ -396,7 +405,8 @@ def main() -> int:
     n_req, slots, gen_len, layers = B, B, 8, get_arch("stablelm-3b").num_layers
     # a prefill, the eager step and the capture; the other steps replay
     want_sl = launch_dict(flash_attention=layers, rmsnorm=3 * (2 * layers + 1),
-                          decode_attention=2 * layers)
+                          decode_attention=2 * layers,
+                          decode_proj=1 + 2 * _projs_per_decode(get_arch("stablelm-3b")))
     ops.reset_launch_counts()
     res = serve("stablelm-3b", reduced=False, n_requests=n_req, batch_slots=slots,
                 prompt_len=prompt_len, gen_len=gen_len, device="cuda")
@@ -513,6 +523,8 @@ def main() -> int:
     rows.extend(train.pop("rows"))
     decode["row"]["launches"] = path_launches["decode_attention"]
     rows.append(decode.pop("row"))
+    proj["row"]["launches"] = path_launches["decode_proj"]
+    rows.append(proj.pop("row"))
 
     # -- 5. the streamed-autotuning loop ---------------------------------------
     autotune = autotune_phase(torch, dev)
@@ -554,6 +566,7 @@ def main() -> int:
     print(json.dumps({"roofline": roofline}))
     print(json.dumps({"decode_attention": decode}))
     print(json.dumps({"decode_graph": graphs}))
+    print(json.dumps({"decode_proj": proj}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -952,6 +965,170 @@ def decode_graph_phase(torch, dev, card):
     return out
 
 
+# The decode step's weight products of the three served configurations
+# (d_model, the q and k/v widths, the MLP's width, the vocabulary), each
+# product as (label, K, the weights' N, how the kernel reads them): the
+# fused q/k/v, the output projection, the gated MLP's first two in one
+# launch, its last and the head (the table read transposed)
+DECODE_PROJ_CONFIGS = {
+    "yi-9b": dict(d=4096, qd=4096, kvd=512, ff=11008, vocab=64000),
+    "stablelm-3b": dict(d=2560, qd=2560, kvd=2560, ff=6912, vocab=50304),
+    "jamba2-mini": dict(d=4096, qd=4096, kvd=1024, ff=14336, vocab=65536),
+}
+DECODE_PROJ_ROWS = (4, 16, 32)
+
+
+def decode_proj_products(c):
+    return [("qkv", c["d"], (c["qd"], c["kvd"], c["kvd"]), ""),
+            ("o", c["qd"], (c["d"],), ""),
+            ("in+gate", c["d"], (c["ff"], c["ff"]), "gated"),
+            ("out", c["ff"], (c["d"],), ""),
+            ("head", c["d"], (c["vocab"],), "transposed")]
+
+
+def decode_proj_phase(torch, dev, card):
+    """The decode step's weight-streaming product (``csrc/decode_proj.cu``)
+    on the card, fp32, random weights of the models' scale.
+
+    Checks, at every product of ``DECODE_PROJ_CONFIGS`` and 4, 16 and 32
+    rows: the kernel's largest error against an fp64 product, over the
+    fp64 product's largest magnitude, is at most twice cuBLAS's fp32
+    SGEMM's (``@``, TF32 off) on the same inputs; a second call is bitwise
+    equal to the first; each call counts one launch under ``decode_proj``.
+    One launch captured in a CUDA graph and replayed gives the eager bits.
+    Times (CUDA events, weights cycled past L2) the kernel and cuBLAS at
+    yi-9b's and stablelm-3b's products at each row count, beside the bound
+    (the weights read once, x read and y written, at 3.35 TB/s), and the
+    kernel's device ms (profiler) at yi-9b's at 32 rows.  Returns the kernel
+    table's row and the readings; any failure raises."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_proj import clusters_fit, decode_proj_cuda, launch_plan
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(30)
+    failures, out = [], {"card": card, "checks": [], "times": []}
+    out["clusters_fit"] = {
+        form: [clusters_fit(dev.index or 0, 32, form == "transposed", form == "gated", s)
+               for s in range(1, 9)] for form in ("plain", "transposed", "gated")}
+    print(f"  decode_proj clusters the card holds at once at 32 rows, split 1-8: "
+          f"{out['clusters_fit']}")
+
+    def weights(K, ns, mode):
+        shape = (lambda n: (n, K)) if mode == "transposed" else (lambda n: (K, n))
+        return [torch.randn(shape(n), generator=gen, device=dev) * K ** -0.5 for n in ns]
+
+    def kernel(x, ws, mode):
+        return decode_proj_cuda(x, *ws, transposed=mode == "transposed",
+                                gated=mode == "gated")
+
+    def library(x, ws, mode, dtype=torch.float32):
+        x = x.to(dtype)
+        ys = [x @ (w.to(dtype).T if mode == "transposed" else w.to(dtype)) for w in ws]
+        return [F.silu(ys[1]) * ys[0]] if mode == "gated" else ys
+
+    def rel_err(ys, refs):
+        return max(((y.double() - r).abs().max() / r.abs().max()).item()
+                   for y, r in zip(ys, refs))
+
+    for cfg, c in DECODE_PROJ_CONFIGS.items():
+        for label, K, ns, mode in decode_proj_products(c):
+            ws = weights(K, ns, mode)
+            for rows in DECODE_PROJ_ROWS:
+                x = torch.randn((rows, K), generator=gen, device=dev)
+                before = ops.launch_counts()["decode_proj"]
+                got = kernel(x, ws, mode)
+                again = kernel(x, ws, mode)
+                lib = library(x, ws, mode)
+                ref = library(x, ws, mode, torch.float64)
+                torch.cuda.synchronize()
+                e_k, e_l = rel_err(got, ref), rel_err(lib, ref)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                launched = ops.launch_counts()["decode_proj"] - before
+                ok = e_k <= 2 * e_l and same and launched == 2 and len(got) == len(lib)
+                out["checks"].append(dict(config=cfg, product=label, rows=rows, K=K, N=ns,
+                                          err=e_k, cublas_err=e_l, repeat_bitwise=same))
+                print(f"  decode_proj {cfg:11s} {label:7s} rows {rows:2d} K {K:5d} N {ns}: "
+                      f"max rel err {e_k:.3e}, cuBLAS fp32 {e_l:.3e} (limit 2x), repeat "
+                      f"bitwise {same}, launches {launched} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"decode_proj {cfg} {label} rows {rows}: err {e_k:.3e} "
+                                    f"vs cuBLAS {e_l:.3e}, repeat {same}, launches {launched}")
+                del x, got, again, lib, ref
+            del ws
+            torch.cuda.empty_cache()
+
+    # one launch captured in a graph and replayed: the eager bits
+    c = DECODE_PROJ_CONFIGS["yi-9b"]
+    ws = weights(c["d"], (c["qd"], c["kvd"], c["kvd"]), "")
+    x = torch.randn((32, c["d"]), generator=gen, device=dev)
+    eager = kernel(x, ws, "")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            captured = kernel(x, ws, "")
+    torch.cuda.current_stream().wait_stream(side)
+    for y in captured:
+        y.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    graph_ok = all(torch.equal(a, b) for a, b in zip(eager, captured))
+    out["graph_bitwise"] = graph_ok
+    print(f"  decode_proj graph replay of yi-9b's q/k/v at 32 rows bitwise equal to the "
+          f"eager launch: {graph_ok} {'ok' if graph_ok else 'FAIL'}")
+    if not graph_ok:
+        failures.append("decode_proj graph replay differs from the eager launch")
+    del ws, x, eager, captured, graph
+
+    # times: kernel against cuBLAS at the two dense decode cells' products
+    row = None
+    for cfg in ("yi-9b", "stablelm-3b"):
+        for label, K, ns, mode in decode_proj_products(DECODE_PROJ_CONFIGS[cfg]):
+            w_bytes = 4 * K * sum(ns)
+            n_sets = max(2, -(-200_000_000 // w_bytes))  # 200 MB of weights cycled
+            wsets = [weights(K, ns, mode) for _ in range(n_sets)]
+            for rows in DECODE_PROJ_ROWS:
+                sets = [(torch.randn((rows, K), generator=gen, device=dev), ws)
+                        for ws in wsets]
+                t_k = cuda_time_ms(torch, lambda x, ws: kernel(x, ws, mode), sets)
+                t_l = cuda_time_ms(torch, lambda x, ws: library(x, ws, mode), sets)
+                n_out = ns[0] if mode == "gated" else sum(ns)
+                b_ms, _ = bound(w_bytes + 4 * rows * (K + n_out), 0, "float32")
+                rec = dict(config=cfg, product=label, rows=rows, K=K, N=ns, kernel_ms=t_k,
+                           cublas_ms=t_l, bound_ms=b_ms, roofline=100 * b_ms / t_k)
+                if cfg == "yi-9b" and rows == 32:
+                    rec["device_ms"], _, _ = device_ms(
+                        torch, lambda x, ws: kernel(x, ws, mode), sets)
+                out["times"].append(rec)
+                rec["tiles"], rec["split"] = launch_plan(
+                    dev.index or 0, rows, K, ns, mode == "transposed", mode == "gated")
+                print(f"time decode_proj {cfg:11s} {label:7s} rows {rows:2d} (tiles "
+                      f"{rec['tiles']}, split {rec['split']}): kernel "
+                      f"{t_k:.4f} ms ({rec['roofline']:.1f}% of the bound"
+                      + (f"; device {rec['device_ms']:.4f} ms" if "device_ms" in rec else "")
+                      + f"), cuBLAS {t_l:.4f} ms ({100 * b_ms / t_l:.1f}%), bound "
+                      f"{b_ms:.4f} ms (bytes); {card}")
+                del sets
+            del wsets
+            torch.cuda.empty_cache()
+    yi32 = [t for t in out["times"] if t["config"] == "yi-9b" and t["rows"] == 32]
+    row = dict(name="decode_proj", route="cuda", source="src/repro_torch/kernels/csrc/decode_proj.cu",
+               replaces="none: jnp.einsum products (src/repro/models/layers.py, "
+                        "src/repro/models/transformer.py)",
+               launches=0, max_rel_err=max(ch["err"] for ch in out["checks"]),
+               ms=sum(t["kernel_ms"] for t in yi32), device_ms=sum(t["device_ms"] for t in yi32),
+               plain_ms=None, bound_ms=sum(t["bound_ms"] for t in yi32), bound_by="bytes",
+               library_ms=sum(t["cublas_ms"] for t in yi32))
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"decode_proj: phase {out['phase_s']:.1f} s")
+    if failures:
+        raise SystemExit("decode_proj checks failed:\n  " + "\n  ".join(failures))
+    return dict(out, row=row)
+
+
 def cuda_time_ms(torch, fn, sets, iters=50):
     """Mean ms per call, cycling through input sets larger than L2: the
     median of 3 timed loops after 10 warm-up calls."""
@@ -1065,12 +1242,28 @@ def launch_dict(**counts):
     """A full ``ops.launch_counts()`` dict: the given counts, every other
     kernel 0 (a serving run launches no backward kernel)."""
     out = {"flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
-           "decode_attention": 0}
+           "decode_attention": 0, "decode_proj": 0}
     for k, n in counts.items():
         if k not in out:
             raise KeyError(k)
         out[k] = n
     return out
+
+
+def _projs_per_decode(cfg):
+    """Weight-streaming product launches of one forward at a decode batch:
+    each attention layer's q/k/v and output projection, each dense MLP's
+    two (the gated form's first two in one), an MoE layer's dense residual
+    MLP's two (its experts keep their batched product), and the head."""
+    from repro_torch.models import transformer
+
+    P, n = len(cfg.layer_pattern), 1
+    for l in range(cfg.num_layers):
+        pos = l % P
+        n += 2 * (cfg.layer_pattern[pos] == "attn")
+        if transformer._has_ffn(cfg, pos):
+            n += 2 * (not transformer._is_moe(cfg, pos) or cfg.moe.dense_residual)
+    return n
 
 
 def _norms_per_forward(cfg):
@@ -1120,8 +1313,9 @@ def recurrent_moe_phase(torch, dev, card):
 
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_proj import MAX_ROWS
     from repro_torch.launch.serve import serve
-    from repro_torch.models import layers, mamba, xlstm
+    from repro_torch.models import layers, mamba, moe, xlstm
     from repro_torch.models.model_zoo import Model, build_model
 
     t_phase = time.perf_counter()
@@ -1210,7 +1404,8 @@ def recurrent_moe_phase(torch, dev, card):
     cfg = get_arch("xlstm-350m")
     G = 16
     want = launch_dict(flash_attention=cfg.attn_layers, rmsnorm=G * _norms_per_forward(cfg),
-                       decode_attention=(G - 1) * cfg.attn_layers)
+                       decode_attention=(G - 1) * cfg.attn_layers,
+                       decode_proj=1 + (G - 1) * _projs_per_decode(cfg))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1246,9 +1441,6 @@ def recurrent_moe_phase(torch, dev, card):
         base = get_arch(arch)
         cfg = dataclasses.replace(base, num_layers=depth,
                                   layer_pattern=tuple(base.layer_pattern)[:depth])
-        want = launch_dict(flash_attention=cfg.attn_layers,
-                           rmsnorm=G * _norms_per_forward(cfg),
-                           decode_attention=(G - 1) * cfg.attn_layers)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model = Model(cfg, device=dev)
@@ -1262,7 +1454,8 @@ def recurrent_moe_phase(torch, dev, card):
         with torch.inference_mode():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, filled = model.prefill(params, {"tokens": toks})
+            with moe.record_routes() as routes:
+                logits, filled = model.prefill(params, {"tokens": toks})
             cache = model.decode_cache(filled, P + G)
             del filled
             finite = torch.isfinite(logits).all()
@@ -1277,6 +1470,17 @@ def recurrent_moe_phase(torch, dev, card):
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t0 - prefill_s
         launches = ops.launch_counts()
+        # the weight-streaming product: the prefill's head, each decode step's
+        # products, and a dropless MoE's prefill experts that took at most
+        # its rows (two launches each, by the routing record)
+        small = (sum(1 <= int((r == e).sum()) <= MAX_ROWS
+                     for r in routes for e in range(cfg.moe.num_experts))
+                 if cfg.moe.dropless else 0)
+        want = launch_dict(flash_attention=cfg.attn_layers,
+                           rmsnorm=G * _norms_per_forward(cfg),
+                           decode_attention=(G - 1) * cfg.attn_layers,
+                           decode_proj=1 + (G - 1) * _projs_per_decode(cfg) + 2 * small)
+        del routes
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with torch.inference_mode():
             nxt = {"tokens": tok[:, None]}
@@ -3149,7 +3353,8 @@ def sharding_phase(torch, dev, card):
         launches = ops.launch_counts()
         del filled, params
         want = launch_dict(flash_attention=cfg.num_layers,
-                           rmsnorm=(1 + 2 * G) * _norms_per_forward(cfg))
+                           rmsnorm=(1 + 2 * G) * _norms_per_forward(cfg),
+                           decode_proj=1 + 2 * G * _projs_per_decode(cfg))
         (tok_s, lg_s, cache_s, ms_s), (tok_l, lg_l, cache_l, ms_l) = runs["sharded"], runs["local"]
         same_tokens = bool(torch.equal(tok_s, tok_l))
         logit_err = (lg_s - lg_l).abs().max().item()

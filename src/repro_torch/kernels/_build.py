@@ -34,6 +34,7 @@ SOURCES = {
     "rmsnorm": CSRC / "rmsnorm.cu",
     "rmsnorm_bwd": CSRC / "rmsnorm_bwd.cu",
     "decode_attention": CSRC / "decode_attention.cu",
+    "decode_proj": CSRC / "decode_proj.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

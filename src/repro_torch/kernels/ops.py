@@ -37,6 +37,15 @@ not a registered op: the roofline walker and the dry-run
 (``launch/dryrun.py``, ``make_fx`` on ``meta`` tensors) keep costing the
 plain ops, as XLA costs the JAX package's jnp decode, so their counts do not
 change.
+
+``decode_proj`` (a decode step's weight products: few rows against a large
+fp32 weight) has no Pallas counterpart either.  The models ask
+``takes_decode_proj`` first and keep their plain ``@`` wherever it says no,
+so it decides from what it can observe which products the weight-streaming
+kernel runs: plain CUDA fp32 tensors, laid out as the kernel reads them,
+at most ``decode_proj.MAX_ROWS`` rows, and no gradient wanted.  Prefill,
+training, DTensor and mesh runs, ``meta`` and fake tensors, the CPU and
+other dtypes keep ``@``.  It is not a registered op, for the same reason.
 """
 from __future__ import annotations
 
@@ -45,9 +54,11 @@ from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import decode_proj as _dp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
-from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,
+from repro_torch.kernels.ref import (decode_attention_ref, decode_proj_ref,
+                                     flash_attention_bwd_ref,
                                      flash_attention_lse_ref, flash_attention_ref,
                                      rmsnorm_bwd_ref, rmsnorm_ref)
 
@@ -174,6 +185,38 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, t: int, *, t_device=None
             raise ValueError(f"decode_attention: no kernel for a {type(x).__name__} on "
                              f"{x.device}; call it on the local shards")
     return decode_attention_ref(*tensors, t)
+
+
+def takes_decode_proj(x, *ws, transposed: bool = False) -> bool:
+    """Whether the weight-streaming kernel takes ``x @ w`` for each weight
+    (``x @ w.T`` where ``transposed``; ``kernels.decode_proj`` says how a
+    weight is read): every tensor a plain fp32 CUDA tensor on one device,
+    contiguous, each weight on the 16-byte grid, K and each N multiples of
+    4, 1 to ``MAX_ROWS`` rows of x, and no gradient wanted."""
+    if _route(x, "decode_proj") != "cuda" or x.dtype != torch.float32 or x.dim() < 1:
+        return False
+    K = x.shape[-1]
+    if K < 4 or K % 4 or not 1 <= x.numel() // K <= _dp.MAX_ROWS or not x.is_contiguous():
+        return False
+    for w in ws:
+        if (_route(w, "decode_proj") != "cuda" or w.dtype != torch.float32
+                or w.device != x.device or not w.is_contiguous() or w.data_ptr() % 16):
+            return False
+        n = _dp.matrix_cols(w, K, transposed)
+        if not n or n % 4:
+            return False
+    return not _wants_grad(x, *ws)
+
+
+def decode_proj(x, *ws, transposed: bool = False, gated: bool = False) -> tuple:
+    """``x @ w`` for each of 1-3 weights in one launch, or, where ``gated``,
+    ``silu(x @ w_gate) * (x @ w_in)`` for ``ws = (w_in, w_gate)``; each
+    output (..., N) (``kernels.decode_proj.decode_proj_cuda``).  A plain CUDA
+    tensor launches the kernel or raises; any other computes the plain
+    version.  Callers ask ``takes_decode_proj`` first."""
+    if _route(x, "decode_proj") == "cuda":
+        return _dp.decode_proj_cuda(x, *ws, transposed=transposed, gated=gated)
+    return decode_proj_ref(x, *ws, transposed=transposed, gated=gated)
 
 
 # ---------------------------------------------------------------------------

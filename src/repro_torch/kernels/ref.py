@@ -56,6 +56,19 @@ def decode_attention_ref(q, k_new, v_new, k_cache, v_cache, t: int):
     return out.reshape(B, 1, H, hd), k_cache, v_cache
 
 
+def decode_proj_ref(x: torch.Tensor, *ws: torch.Tensor, transposed: bool = False,
+                    gated: bool = False) -> tuple:
+    """``x @ w`` for each weight, w taken as (K, N) (its leading dims
+    multiplying to x's last dim K) or, where ``transposed``, ``x @ w.T`` for
+    w (N, K); where ``gated``, for ``ws = (w_in, w_gate)``, the one output
+    ``silu(x @ w_gate) * (x @ w_in)``.  Each (..., N)."""
+    K = x.shape[-1]
+    ys = [x @ (w.T if transposed else w.reshape(K, -1)) for w in ws]
+    if gated:
+        return (torch.nn.functional.silu(ys[1]) * ys[0],)
+    return tuple(ys)
+
+
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *,
                 eps: float = 1e-5) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * scale`` in fp32, cast back to x.dtype."""

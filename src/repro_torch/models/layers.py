@@ -120,14 +120,25 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *, gated: bool,
     return p
 
 
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: the decode step's weight-streaming kernel where it takes
+    the product (``ops.takes_decode_proj``), else ``@``."""
+    return ops.decode_proj(x, w)[0] if ops.takes_decode_proj(x, w) else x @ w
+
+
 def mlp_apply(params: dict, x: torch.Tensor, rules: AxisRules = _NULL_RULES) -> torch.Tensor:
+    """The products go to the weight-streaming kernel where it takes them,
+    the gated form's two first ones in one launch that applies the gate."""
     seq = ("seq",) * (x.ndim - 2)
-    h = rules.constrain(x @ params["w_in"], "batch", *seq, "ff")
-    if "w_gate" in params:
-        h = F.silu(x @ params["w_gate"]) * h
+    if "w_gate" in params and ops.takes_decode_proj(x, params["w_in"], params["w_gate"]):
+        h = ops.decode_proj(x, params["w_in"], params["w_gate"], gated=True)[0]
     else:
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
-    return rules.constrain(h @ params["w_out"], "batch", *seq, "embed_act")
+        h = rules.constrain(_product(x, params["w_in"]), "batch", *seq, "ff")
+        if "w_gate" in params:
+            h = F.silu(x @ params["w_gate"]) * h
+        else:
+            h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
+    return rules.constrain(_product(h, params["w_out"]), "batch", *seq, "embed_act")
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +174,10 @@ def embedding_lookup(params: dict, tokens: torch.Tensor,
 
 def lm_head_apply(table: torch.Tensor, x: torch.Tensor,
                   rules: AxisRules = _NULL_RULES) -> torch.Tensor:
-    """Project hidden states to vocab logits (weights (vocab, d_model))."""
+    """Project hidden states to vocab logits (weights (vocab, d_model)); by
+    the weight-streaming kernel where it takes the product."""
+    if ops.takes_decode_proj(x, table, transposed=True):
+        return ops.decode_proj(x, table, transposed=True)[0]
     return rules.constrain(x @ table.T, "batch", *("seq",) * (x.ndim - 2), "vocab")
 
 

@@ -19,6 +19,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models import mamba as mamba_lib
@@ -225,22 +226,35 @@ def _project(x, w, rules: AxisRules, heads_axis: str):
     return rules.constrain(y.view(B, S, h, k), "batch", "seq", heads_axis, "head_dim")
 
 
+def _project_qkv(x, p, rules: AxisRules):
+    """q, k and v by ``_project``, or, where the decode step's
+    weight-streaming kernel takes the three products
+    (``ops.takes_decode_proj``), by one launch of it."""
+    ws = (p["wq"], p["wk"], p["wv"])
+    if ops.takes_decode_proj(x, *ws):
+        B, S, _ = x.shape
+        return tuple(y.view(B, S, *w.shape[1:]) for y, w in zip(ops.decode_proj(x, *ws), ws))
+    return (_project(x, p["wq"], rules, "heads"), _project(x, p["wk"], rules, "kv_heads"),
+            _project(x, p["wv"], rules, "kv_heads"))
+
+
 def _unproject(o, w, rules: AxisRules):
     """o (B,S,h,k) by w (h,k,d) -> (B,S,d), the product over the flattened
     (h*k) rows, laid out by the heads as ``_project``'s columns (einsum's
     own views of a gradient split over 16 ranks fail where 24 or 56 heads
-    do not divide)."""
+    do not divide); by the weight-streaming kernel where it takes it."""
     B, S, h, k = o.shape
-    o2 = rules.constrain(o.reshape(B, S, h * k), "batch", "seq", "heads")
+    o2 = o.reshape(B, S, h * k)
+    if ops.takes_decode_proj(o2, w):
+        return ops.decode_proj(o2, w)[0]
+    o2 = rules.constrain(o2, "batch", "seq", "heads")
     return o2 @ rules.constrain(w.reshape(h * k, w.shape[-1]), "heads", "embed")
 
 
 def _attn_apply(p, x, cfg: ArchConfig, rcfg: RunConfig, *, positions,
                 cache=None, t=None, t_device=None, attn_call=None, build_cache=False):
     rules = rcfg.rules
-    q = _project(x, p["wq"], rules, "heads")
-    k = _project(x, p["wk"], rules, "kv_heads")
-    v = _project(x, p["wv"], rules, "kv_heads")
+    q, k, v = _project_qkv(x, p, rules)
     if cfg.rope:
         q = attn_lib.apply_rope(q, positions, cfg.rope_theta)
         k = attn_lib.apply_rope(k, positions, cfg.rope_theta)

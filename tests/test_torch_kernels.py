@@ -19,12 +19,13 @@ from repro.kernels.ops import flash_attention as jax_flash_attention
 from repro.kernels.ops import rmsnorm as jax_rmsnorm
 from repro.models.attention import reference_attention as jax_reference_attention
 from repro_torch.configs.base import get_arch, list_archs
-from repro_torch.kernels import _build, decode_attention, flash_attention, ops, rmsnorm
+from repro_torch.kernels import (_build, decode_attention, decode_proj, flash_attention, ops,
+                                 rmsnorm)
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 
 # every C entry point the wrappers declare, and the one launch entry of
 # each library
-ENTRIES = [e for m in (flash_attention, rmsnorm, decode_attention)
+ENTRIES = [e for m in (flash_attention, rmsnorm, decode_attention, decode_proj)
            for e in vars(m).values() if isinstance(e, _build.Entry)]
 LAUNCH_ENTRIES = {e.library: e for e in ENTRIES if e.restype is _build.INT}
 
@@ -255,8 +256,12 @@ def test_cpu_path_launches_no_kernel():
     ops.flash_attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous())
     kc = torch.randn(1, 16, 1, 16)
     ops.decode_attention(q[:, :1].contiguous(), kc[:, :1], kc[:, :1], kc, kc.clone(), 4)
+    w = torch.randn(8, 12)
+    (y,) = ops.decode_proj(x, w)
+    torch.testing.assert_close(y, x @ w, rtol=0, atol=0)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                   "rmsnorm": 0, "rmsnorm_bwd": 0, "decode_attention": 0}
+                                   "rmsnorm": 0, "rmsnorm_bwd": 0, "decode_attention": 0,
+                                   "decode_proj": 0}
 
 
 def test_other_devices_and_bad_blocks_raise():
@@ -406,6 +411,10 @@ def test_build_names_libraries_by_source_and_honours_build_dir(monkeypatch, tmp_
         if name == "decode_attention":
             assert "Replaces no Pallas kernel" in text
             assert "src/repro/models/attention.py, decode_attention_local" in text
+        elif name == "decode_proj":
+            assert "Replaces no Pallas kernel" in text
+            assert "src/repro/models/layers.py, mlp_apply" in text
+            assert "src/repro/models/layers.py, lm_head_apply" in text
         else:
             assert f"src/repro/kernels/{name.removesuffix('_bwd')}.py" in text
         assert f'extern "C" int {LAUNCH_ENTRIES[name].symbol}(' in text
@@ -482,13 +491,14 @@ def test_a_query_reads_no_stream_and_counts_nothing(fake_library, monkeypatch):
 
 
 def test_reset_launch_counts_zeroes_all_five():
+    """Every library's count, the weight-streaming product's the sixth."""
     for i, name in enumerate(_build.SOURCES):
         _build.LAUNCHES[name] = i + 1
     counts = ops.launch_counts()
     assert counts == {name: i + 1 for i, name in enumerate(_build.SOURCES)}
     ops.reset_launch_counts()
     assert ops.launch_counts() == dict.fromkeys(_build.SOURCES, 0) != counts
-    assert len(counts) == 5
+    assert len(counts) == 6 and list(counts)[-1] == "decode_proj"
 
 
 def test_library_names_follow_the_shared_header(monkeypatch, tmp_path):

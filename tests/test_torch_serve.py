@@ -53,7 +53,8 @@ def test_serve_generates_the_jax_tokens():
     assert got.tokens_generated == want.tokens_generated == 20
     assert got.logits_finite and 0 <= got.prefill_s <= got.wall_s
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                   "rmsnorm": 0, "rmsnorm_bwd": 0, "decode_attention": 0}
+                                   "rmsnorm": 0, "rmsnorm_bwd": 0, "decode_attention": 0,
+                                   "decode_proj": 0}
 
 
 def test_stablelm_serve_generates_the_jax_tokens():
